@@ -1,0 +1,265 @@
+"""Execution engine: the single dispatch point for quantized matmuls and
+packed-KV decode attention (port of ``repro/core/engine.py``).
+
+``QuantConfig.impl`` selects how a quantized contraction executes:
+
+  qdq    — fake-quant the operands, matmul in bf16/f32.
+  packed — the weight is a resident :class:`PackedW` (0.5625 B/value) and is
+           contracted by the fused packed matmul: activations are quantized
+           by ``hif4_quantize`` and the kernel expands the 4.5-bit payload
+           in shared memory. On CUDA tensors the two CUDA kernels always
+           launch; on CPU tensors their plain versions run, with the
+           reference's off-TPU cap on the plain version's (K/64, M, N)
+           intermediate (above it: dequantize-then-dot).
+  pallas — on a PackedW the same fused path as ``packed``; on a dense weight
+           it needs the ``bfp_matmul_quantized`` kernel, which is not yet
+           ported (raises).
+
+Dispatch is total otherwise, following the reference's fallback table:
+
+  * dense (unpacked) weight under ``packed``-> qdq
+  * PackedW under ``qdq``                   -> dequantize-then-dot
+  * PackedW x ``weights_only`` / non-HiF4
+    fmt / non-innermost contraction         -> dequantize-then-dot
+  * contraction not a whole number of
+    64-groups                               -> qdq
+
+Decode attention over an HiF4-packed KV cache dispatches here too
+(:func:`attention_decode`): impl packed/pallas on a kernel-tileable cache
+takes the fused decode-attention kernel (its plain version on CPU tensors);
+every other combination runs the plain recurrence.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import hif4, kvcache
+from repro_torch.core.qlinear import (
+    NO_QUANT,
+    PackedW,
+    QuantConfig,
+    quantize_activation,
+    quantize_weight,
+)
+from repro_torch.kernels.fused_attention import (
+    fused_decode_attention,
+    fused_decode_attention_plain,
+    kernel_compatible,
+    select_kv_block,
+)
+from repro_torch.kernels.fused_matmul import (
+    cuda_tiles,
+    fused_packed_matmul,
+    select_block_sizes,
+)
+from repro_torch.kernels.hif4_quant import hif4_quantize
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineCtx:
+    """Everything a quantized contraction needs besides its operands."""
+
+    quant: QuantConfig = NO_QUANT
+
+
+DEFAULT_ENGINE = EngineCtx()
+
+
+def dot(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
+    """x (..., K) @ w (K, N) with the output in ``out_dtype``. A float32
+    output from bf16 operands accumulates in float32 without an f32 copy of
+    ``w`` on CUDA (``torch.mm`` with ``out_dtype``); the CPU upcasts."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k)
+    if out_dtype == torch.float32 and x.dtype != torch.float32:
+        if x.is_cuda:
+            y = torch.mm(x2, w, out_dtype=torch.float32)
+        else:
+            y = x2.to(torch.float32) @ w.to(torch.float32)
+    else:
+        y = (x2 @ w.to(x2.dtype)).to(out_dtype)
+    return y.reshape(lead + (w.shape[1],))
+
+
+def matmul(x: torch.Tensor, w, ectx: EngineCtx = DEFAULT_ENGINE, *,
+           contract_x: int = -1, contract_w: int = 0,
+           accum_dtype=None) -> torch.Tensor:
+    """``x @ w`` through the configured execution path. ``w`` is a dense
+    tensor or a :class:`PackedW`; ``accum_dtype`` is the dot output dtype on
+    the qdq/fallback paths (default x.dtype)."""
+    cfg = ectx.quant
+    if isinstance(w, PackedW):
+        if _fused_packed_ok(cfg, x, contract_x, w):
+            return _fused_packed_matmul(x, w, ectx)
+        return _packed_matmul(x, w, ectx, contract_x=contract_x,
+                              accum_dtype=accum_dtype)
+    if (cfg.enabled and cfg.impl == "pallas"
+            and _pallas_activation_ok(cfg, x, contract_x)
+            and _pallas_weight_ok(w, contract_w)):
+        raise NotImplementedError(
+            "impl='pallas' on a dense weight runs bfp_matmul_quantized, which "
+            "is not yet ported to repro_torch (pack the weight, or use "
+            "impl='packed'/'qdq')")
+    return _qdq_matmul(x, w, cfg, contract_x=contract_x, contract_w=contract_w,
+                       accum_dtype=accum_dtype)
+
+
+# ---------------------------------------------------------------------------
+# qdq path
+# ---------------------------------------------------------------------------
+
+
+def _qdq_matmul(x, w, cfg, *, contract_x, contract_w, accum_dtype):
+    out_dtype = x.dtype
+    if cfg.enabled:
+        x = quantize_activation(x, cfg, axis=contract_x)
+        w = quantize_weight(w, cfg, axis=contract_w)
+    x = torch.movedim(x, contract_x, -1)
+    w2 = torch.movedim(w, contract_w, 0)
+    w2 = w2.reshape(w2.shape[0], -1)
+    y = dot(x, w2, accum_dtype or out_dtype)
+    y = y.reshape(x.shape[:-1] + tuple(torch.movedim(w, contract_w, 0).shape[1:]))
+    return y.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# fused packed path
+# ---------------------------------------------------------------------------
+
+
+def _fused_packed_ok(cfg: QuantConfig, x, contract_x: int, w: PackedW) -> bool:
+    """The fused kernel quantizes activations and tiles K: it needs a
+    packed/pallas impl on HiF4, both-operand quantization and an innermost
+    contraction of exactly K."""
+    return (
+        cfg.impl in ("packed", "pallas")
+        and cfg.fmt == "hif4"
+        and not cfg.weights_only
+        and contract_x % x.ndim == x.ndim - 1
+        and x.shape[-1] == w.shape2d[0]
+    )
+
+
+# The plain version's group-batched GEMM materializes a (K/64, M, N) f32
+# intermediate (the kernel keeps it in registers). Above this cap the CPU
+# takes the dequantize fallback, as the reference does off-TPU.
+_PLAIN_FUSED_PART_BYTES_MAX = 128 * 2 ** 20
+
+
+def _fused_packed_matmul(x, w: PackedW, ectx: EngineCtx):
+    """Serving hot path: dynamic activation quant x packed resident weight,
+    dequantized inside the contraction."""
+    out_dtype = x.dtype
+    k, n = w.shape2d
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    if not x2.is_cuda:
+        part_bytes = (k // hif4.GROUP_SIZE) * x2.shape[0] * n * 4
+        if part_bytes > _PLAIN_FUSED_PART_BYTES_MAX:
+            return _packed_matmul(x, w, ectx, contract_x=-1, accum_dtype=None)
+    codes_km, meta_km = w.kernel_operands()
+    ai, asc = hif4_quantize(x2.contiguous())
+    y = fused_packed_matmul(ai, asc, codes_km, meta_km)
+    return y.reshape(lead + (n,)).to(out_dtype)
+
+
+def packed_dispatch_info(quant: QuantConfig, w: PackedW, *, decode_m: int,
+                         prefill_m: int, device) -> dict:
+    """What the engine will run for ``w`` under ``quant`` on ``device`` — the
+    launcher prints it next to the residency lines. ``*_blocks`` are the
+    reference's per-regime tiles, ``*_tiles`` the CUDA kernel's (BM, BN,
+    groups per step)."""
+    k, n = w.shape2d
+    probe = torch.empty((decode_m, k), dtype=torch.bfloat16, device="meta")
+    none = {"decode_blocks": None, "prefill_blocks": None,
+            "decode_tiles": None, "prefill_tiles": None}
+    if not _fused_packed_ok(quant, probe, -1, w):
+        return {"fused": False, "execution": "dequantize-then-dot fallback", **none}
+    if torch.device(device).type != "cuda":
+        return {"fused": True,
+                "execution": "plain PyTorch fused contraction (CPU)", **none}
+    return {"fused": True, "execution": "CUDA fused kernel",
+            "decode_blocks": select_block_sizes(decode_m, n, k),
+            "prefill_blocks": select_block_sizes(prefill_m, n, k),
+            "decode_tiles": cuda_tiles(decode_m),
+            "prefill_tiles": cuda_tiles(prefill_m)}
+
+
+# ---------------------------------------------------------------------------
+# fused decode-attention path
+# ---------------------------------------------------------------------------
+
+
+def _fused_attn_ok(cfg: QuantConfig, k_cache: dict, n_kv_heads: int,
+                   d_head: int) -> bool:
+    return (cfg.impl in ("packed", "pallas")
+            and kernel_compatible(k_cache, n_kv_heads, d_head))
+
+
+def attention_decode(q, k_cache: dict, v_cache: dict, length,
+                     n_kv_heads: int, d_head: int,
+                     ectx: EngineCtx = DEFAULT_ENGINE) -> torch.Tensor:
+    """Decode attention against a PACKED contiguous KV cache: the fused
+    kernel for impl packed/pallas on a kernel-tileable cache, the plain
+    recurrence otherwise."""
+    if _fused_attn_ok(ectx.quant, k_cache, n_kv_heads, d_head):
+        return fused_decode_attention(q, k_cache, v_cache, length,
+                                      n_kv_heads=n_kv_heads, d_head=d_head)
+    return fused_decode_attention_plain(q, k_cache, v_cache, length,
+                                        n_kv_heads, d_head)
+
+
+def attention_dispatch_info(quant: QuantConfig, k_cache: dict, *,
+                            n_kv_heads: int, d_head: int, device) -> dict:
+    """What :func:`attention_decode` will run for this cache under ``quant``
+    on ``device``: ``fused`` (the CUDA kernel), ``execution``, ``block_kv``,
+    ``kernel_eligible`` (device-neutral) and ``route``."""
+    block = select_kv_block(kvcache.seq_capacity(k_cache))
+    eligible = _fused_attn_ok(quant, k_cache, n_kv_heads, d_head)
+    if not eligible:
+        if quant.impl not in ("packed", "pallas"):
+            why = f"impl={quant.impl}"
+        elif not kvcache.is_kernel_layout(k_cache):
+            why = "artifact layout"
+        else:
+            why = "staging tail"
+        return {"fused": False, "block_kv": block, "kernel_eligible": False,
+                "route": "fused_decode_attention_plain",
+                "execution": f"plain recurrence (chunked dequantize; {why})"}
+    if torch.device(device).type != "cuda":
+        return {"fused": False, "block_kv": block, "kernel_eligible": True,
+                "route": "fused_decode_attention",
+                "execution": "plain recurrence (CPU)"}
+    return {"fused": True, "block_kv": block, "kernel_eligible": True,
+            "route": "fused_decode_attention", "execution": "CUDA fused kernel"}
+
+
+# ---------------------------------------------------------------------------
+# packed fallback: dequantize the PackedW, then a dense dot
+# ---------------------------------------------------------------------------
+
+
+def _packed_matmul(x, w: PackedW, ectx: EngineCtx, *, contract_x, accum_dtype):
+    out_dtype = x.dtype
+    wd = w.dequantize()                                  # (K, N) dense
+    x = quantize_activation(x, ectx.quant, axis=contract_x)
+    x = torch.movedim(x, contract_x, -1)
+    return dot(x, wd, accum_dtype or out_dtype).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# pallas eligibility (dense weights: kernel not yet ported)
+# ---------------------------------------------------------------------------
+
+
+def _pallas_activation_ok(cfg: QuantConfig, x, contract_x: int) -> bool:
+    return (cfg.fmt == "hif4" and not cfg.weights_only
+            and contract_x % x.ndim == x.ndim - 1
+            and x.shape[-1] % hif4.GROUP_SIZE == 0)
+
+
+def _pallas_weight_ok(w, contract_w: int) -> bool:
+    return (w.ndim == 2 and contract_w % w.ndim == 0
+            and w.shape[0] % hif4.GROUP_SIZE == 0)

@@ -1,0 +1,236 @@
+"""Quantized linear algebra plumbing (port of ``repro/core/qlinear.py``):
+configs, fake-quant ops and the packed-weight container. The engine
+(:mod:`repro_torch.core.engine`) owns execution.
+
+The port serves only, so the fake-quant ops return the quantized value
+directly (the reference's straight-through estimator only matters for
+gradients).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core import hif4
+from repro_torch.core.formats import BFPFormat, get_format
+from repro_torch.core.kvcache import KVCacheConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """How matmuls inside models are quantized.
+
+    fmt             : 'hif4' | 'none'
+    weights_only    : quantize only the weight operand
+    offline_weights : weights were already quantized once offline; skip
+                      the in-graph weight QDQ
+    impl            : 'qdq' | 'packed' | 'pallas'
+    kv              : how the decode KV cache is stored
+    """
+
+    fmt: str = "none"
+    weights_only: bool = False
+    offline_weights: bool = False
+    impl: str = "qdq"
+    kv: KVCacheConfig = KVCacheConfig()
+
+    @property
+    def enabled(self) -> bool:
+        return get_format(self.fmt) is not None
+
+    def format(self) -> Optional[BFPFormat]:
+        return get_format(self.fmt)
+
+
+NO_QUANT = QuantConfig()
+
+
+def quantize_activation(x: torch.Tensor, cfg: QuantConfig, axis: int = -1
+                        ) -> torch.Tensor:
+    fmt = cfg.format()
+    if fmt is None or cfg.weights_only:
+        return x
+    return fmt.qdq(x, axis=axis)
+
+
+def quantize_weight(w: torch.Tensor, cfg: QuantConfig, axis: int = 0
+                    ) -> torch.Tensor:
+    fmt = cfg.format()
+    if fmt is None or cfg.offline_weights:
+        return w
+    return fmt.qdq(w, axis=axis)
+
+
+def packable_contract_axes(key: str, ndim: int):
+    """Contraction axes of a STACKED block weight (leading axis = layers):
+    attn wo (L, H, Dh, d) contracts (H, Dh); every other weight axis 1."""
+    if key == "wo" and ndim == 4:
+        return (1, 2)
+    return (1,) if ndim >= 3 else (0,)
+
+
+def _qdq_along(w, fmt, ca: tuple):
+    """QDQ ``w`` along contraction axes ``ca`` (multi-axis: flatten, qdq,
+    restore); ``w`` unchanged when K is not a whole number of 64-groups."""
+    if len(ca) == 1:
+        if w.shape[ca[0]] % hif4.GROUP_SIZE:
+            return w
+        return fmt.qdq(w, axis=ca[0])
+    lead = tuple(w.shape[: ca[0]])
+    k_flat = math.prod(w.shape[a] for a in ca)
+    if k_flat % hif4.GROUP_SIZE:
+        return w
+    w2 = w.reshape(lead + (k_flat,) + tuple(w.shape[ca[-1] + 1:]))
+    return fmt.qdq(w2, axis=len(lead)).reshape(w.shape)
+
+
+def quantize_params_offline(params, cfg: QuantConfig, *, plan=None,
+                            prefix: str = ""):
+    """One-time offline weight PTQ: QDQ exactly the matmul weights along their
+    contraction axes. With ``plan`` (a resolved QuantPlan) the per-site
+    decision comes from the plan; without one, the default packable-site
+    rules with ``cfg.fmt``. ``PackedW`` leaves pass through untouched."""
+    from repro_torch.core.policy import default_offline_axes
+
+    fmt = cfg.format()
+    if fmt is None and plan is None:
+        return params
+
+    def q(parts, w):
+        if isinstance(w, PackedW):
+            return w
+        if plan is not None:
+            site = plan.get(".".join(([prefix] if prefix else []) + parts))
+            if site is None or site.packed or not site.quantize_offline:
+                return w
+            site_fmt = site.cfg.format()
+            if site_fmt is None:
+                return w
+            return _qdq_along(w, site_fmt, site.contract_axes)
+        ca = default_offline_axes(parts[-1], w.ndim)
+        if ca is None:
+            return w
+        return _qdq_along(w, fmt, ca)
+
+    def walk(node, parts):
+        if isinstance(node, dict):
+            return {k: walk(v, parts + [k]) for k, v in node.items()}
+        return q(parts, node)
+
+    return walk(params, [])
+
+
+# ---------------------------------------------------------------------------
+# Packed weights (serving deployment artifact, 4.5 bits/value)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PackedW:
+    """A weight stored as HiF4 packed buffers, usable wherever the models
+    pass a dense weight.
+
+    * artifact (``kernel_layout=False``) — output-major, the on-disk shape:
+          codes (N, K/64, 32) uint8    meta (N, K/64) int32 (uint32 bits)
+    * kernel (``kernel_layout=True``) — K-major 2-D, what the fused matmul
+      streams:
+          codes (K/2, N) uint8         meta (K/64, N) int32
+
+    Stacked-layer weights carry one extra leading L axis on both buffers
+    (:meth:`layer` slices it). ``shape2d`` = (K, N).
+    """
+
+    codes: torch.Tensor
+    meta: torch.Tensor
+    shape2d: tuple
+    dtype: Any = torch.bfloat16
+    axes2d: tuple = (None, None)     # (out logical axis, contract logical axis)
+    kernel_layout: bool = False
+
+    def _replace(self, **kw) -> "PackedW":
+        return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "PackedW":
+        return self._replace(codes=self.codes.to(device),
+                             meta=self.meta.to(device))
+
+    def layer(self, i: int) -> "PackedW":
+        """The per-layer slice of a stacked weight (views, no copy)."""
+        return self._replace(codes=self.codes[i], meta=self.meta[i])
+
+    def to_kernel_layout(self) -> "PackedW":
+        """One-time re-layout artifact -> K-major kernel buffers (same bits,
+        contiguous). Accepts 2-D and stacked-layer weights."""
+        if self.kernel_layout:
+            return self
+        k, n = self.shape2d
+        lead = tuple(self.codes.shape[:-3])
+        codes = self.codes.reshape(lead + (n, k // 2)).transpose(-1, -2)
+        meta = self.meta.transpose(-1, -2)
+        return self._replace(codes=codes.contiguous(), meta=meta.contiguous(),
+                             kernel_layout=True)
+
+    def kernel_operands(self):
+        """(codes_km (K/2, N) uint8, meta_km (K/64, N) int32) for the fused
+        matmul; artifact-layout weights re-layout per call."""
+        kw = self.to_kernel_layout()
+        if kw.codes.ndim != 2:
+            raise ValueError(
+                f"kernel_operands needs a per-layer slice, got codes "
+                f"{tuple(kw.codes.shape)}")
+        return kw.codes, kw.meta
+
+    def reshape(self, *shape):
+        """Validate-and-pass-through: the models' ``w.reshape(d, -1)`` call
+        sites must resolve to exactly the packed layout (K, N)."""
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        k, n = self.shape2d
+        if len(shape) != 2 or sum(1 for s in shape if s == -1) > 1:
+            raise ValueError(f"PackedW.reshape{shape}: packed layout is 2-D")
+        known = math.prod(s for s in shape if s != -1)
+        resolved = tuple(s if s != -1 else (k * n) // known for s in shape)
+        if resolved != (k, n):
+            raise ValueError(f"PackedW.reshape{shape} resolved to {resolved}, "
+                             f"but the packed layout is (K, N) = {self.shape2d}")
+        return self
+
+    @property
+    def ndim(self):
+        return 2
+
+    @classmethod
+    def from_dense(cls, w: torch.Tensor, contract_axes=(0,)) -> "PackedW":
+        """Quantize + pack a dense weight (offline PTQ)."""
+        nd = w.ndim
+        contract_axes = tuple(a % nd for a in contract_axes)
+        out_axes = tuple(a for a in range(nd) if a not in contract_axes)
+        k = math.prod(w.shape[a] for a in contract_axes)
+        n = math.prod(w.shape[a] for a in out_axes) if out_axes else 1
+        if k % hif4.GROUP_SIZE:
+            raise ValueError(f"K={k} of {tuple(w.shape)} is not a multiple of 64")
+        wt = w.permute(out_axes + contract_axes).reshape(n, k)
+        groups = wt.reshape(n, k // hif4.GROUP_SIZE, hif4.GROUP_SIZE)
+        packed = hif4.pack_groups(hif4.quantize_groups(groups.to(torch.float32)))
+        return cls(packed.codes, packed.meta, (k, n), w.dtype)
+
+    def dequantize(self) -> torch.Tensor:
+        """Expand to the (K, N) dense weight."""
+        k, n = self.shape2d
+        if self.kernel_layout:
+            return hif4.dequantize_km(*self.kernel_operands(), dtype=self.dtype)
+        vals = hif4.dequantize_groups(
+            hif4.unpack_groups(hif4.HiF4Packed(self.codes, self.meta)))
+        return vals.reshape(n, k).T.to(self.dtype)
+
+    @property
+    def nbytes_packed(self) -> int:
+        """Bytes of 4.5-bit payload actually resident (codes + meta)."""
+        return self.codes.numel() + 4 * self.meta.numel()
+
+    @property
+    def n_values(self) -> int:
+        return self.codes.numel() * 2

@@ -1,0 +1,101 @@
+"""Where the decode time goes: time and profile the port's greedy decode step.
+
+    python -m repro_torch.launch.profile --arch qwen1.5-0.5b   # on the card
+
+Builds the serving artifact (policy paper-iv, impl packed, HiF4 KV) from
+random weights (``--seed``), prefills ``--batch`` x ``--prompt-len`` tokens,
+then times ``--steps`` decode steps with the host clock around work that ends
+in a device synchronize, and profiles two more with ``torch.profiler``
+(CPU + CUDA activities). Prints the step time, the device-busy share of the
+profiled window (sum of kernel time / wall time; overlapping kernels would
+overcount, the decode loop runs on one stream) and the top device kernels
+and host operators. CUDA only: a time taken on the CPU is not a device time.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.core import kvcache
+from repro_torch.core.policy import get_policy
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+from repro_torch.models.common import ModelCtx
+from repro_torch.runtime.serve_loop import (
+    ServeConfig, build_decode_cache, prepare_params_for_serving, serving_ctx)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=480)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+    dev = resolve_device("cuda")
+    cfg = get_arch(args.arch)
+    plan = lm.quant_plan(cfg, get_policy("paper-iv", impl="packed",
+                                         kv=kvcache.KV_HIF4))
+    ctx = ModelCtx(plan=plan)
+    sctx = serving_ctx(ctx)
+    params = prepare_params_for_serving(lm.init_params(cfg, args.seed, device="cpu"),
+                                        cfg, plan, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=torch.Generator().manual_seed(args.seed + 1))
+    budget = args.steps + 4
+    logits, cache = build_decode_cache(cfg, params, {"tokens": tokens.to(dev)},
+                                       sctx, ServeConfig(max_new_tokens=budget))
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def step(token, cache):
+        logits, cache = lm.decode_step(params, token, cache, cfg, sctx)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    token, cache = step(token, cache)                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        token, cache = step(token, cache)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    print(f"{torch.cuda.get_device_name(0)}: {cfg.name} batch {args.batch} "
+          f"prompt {args.prompt_len}: decode {step_ms:.2f} ms/step "
+          f"({args.batch * 1e3 / step_ms:.1f} tokens/s)")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            token, cache = step(token, cache)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy = sum(dev_us(e) for e in events)
+    n_kernels = sum(e.count for e in events if dev_us(e) > 0)
+    print(f"profiled 2 steps: wall {wall_us / 2e3:.2f} ms/step, device busy "
+          f"{busy / 2e3:.2f} ms/step ({100 * busy / wall_us:.1f}% of wall; "
+          f"idle {100 - 100 * busy / wall_us:.1f}%), "
+          f"{n_kernels / 2:.0f} device ops/step")
+    print("top device time (per step):")
+    for e in sorted(events, key=dev_us, reverse=True)[:args.top]:
+        if dev_us(e) <= 0:
+            break
+        print(f"  {dev_us(e) / 2e3:9.3f} ms  {e.count / 2:6.0f}x  {e.key[:90]}")
+    print("top host time (self, per step):")
+    for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:args.top]:
+        print(f"  {e.self_cpu_time_total / 2e3:9.3f} ms  {e.count / 2:6.0f}x  {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,202 @@
+"""Serving launcher of the PyTorch port: offline HiF4 packing + greedy decode.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --policy paper-iv --impl packed --kv-format hif4          # on cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --reduced --device cpu --batch 2 --prompt-len 8 --new-tokens 4
+
+Prints the same residency, plan and dispatch lines as the JAX launcher
+(``repro.launch.serve``), then one line of tokens per request. Weights are
+random, made from ``--seed``; prompts too. ``--kv-pages``, ``--guard``,
+``--inject-fault`` and ``--journal-dir`` are not yet ported and exit with a
+nonzero status.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.core import kvcache
+from repro_torch.core.engine import attention_dispatch_info, packed_dispatch_info
+from repro_torch.core.policy import get_policy
+from repro_torch.core.qlinear import PackedW, QuantConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+from repro_torch.models.common import ModelCtx
+from repro_torch.runtime.serve_loop import (
+    ServeConfig,
+    packed_weight_bytes,
+    prepare_params_for_serving,
+    resolve_kv_format,
+    serve,
+)
+
+NOT_YET_PORTED_FLAGS = ("kv_pages", "guard", "inject_fault", "journal_dir")
+
+
+def _leaf_at(tree, path: str):
+    node = tree
+    for part in path.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def _print_plan(plan, serving_params):
+    """The resolved policy plan, one line per site."""
+    print(f"policy plan [{plan.policy.name}] "
+          f"({len(plan.packed_paths)}/{len(plan.sites)} sites packed):")
+    print(f"  {'site':<18} {'fmt':<10} {'impl':<7} {'resident artifact':<34} "
+          f"{'bytes':>12}")
+    for site in plan.sites:
+        leaf = _leaf_at(serving_params, site.path)
+        if isinstance(leaf, PackedW):
+            nbytes = leaf.nbytes_packed
+            art = f"PackedW 4.5-bit ({nbytes / leaf.n_values:.4f} B/value)"
+        elif leaf is None:
+            nbytes = 0
+            art = "(tied -> embed)" if site.path == "lm_head" else "(absent)"
+        else:
+            nbytes = leaf.numel() * leaf.element_size()
+            dt = str(leaf.dtype).replace("torch.", "")
+            art = (f"qdq {dt} (offline PTQ)"
+                   if site.cfg.enabled and site.quantize_offline else dt)
+        print(f"  {site.path:<18} {site.cfg.fmt:<10} {site.cfg.impl:<7} "
+              f"{art:<34} {nbytes:>12,}")
+
+
+def _first_packed(tree):
+    if isinstance(tree, PackedW):
+        return tree
+    if isinstance(tree, dict):
+        for v in tree.values():
+            found = _first_packed(v)
+            if found is not None:
+                return found
+    return None
+
+
+def _print_kernel_dispatch(serving_params, ctx, args, device):
+    pw = _first_packed(serving_params)
+    if pw is None:
+        return
+    if pw.codes.ndim > (2 if pw.kernel_layout else 3):
+        pw = pw.layer(0)
+    info = packed_dispatch_info(ctx.quant, pw, decode_m=args.batch,
+                                prefill_m=args.batch * args.prompt_len,
+                                device=device)
+    if not info["fused"]:
+        print("packed matmul: dequantize-then-dot fallback "
+              "(fused kernel needs impl=packed|pallas, fmt=hif4, "
+              "both-operand quantization)")
+        return
+    k, n = pw.shape2d
+    line = f"packed matmul: fused [{info['execution']}] on e.g. (K={k}, N={n})"
+    if info["decode_tiles"] is not None:
+        line += (f"; tiles decode(BM,BN,groups)={info['decode_tiles']} "
+                 f"prefill={info['prefill_tiles']}")
+    print(line)
+
+
+def _print_attention_dispatch(cfg, ctx, capacity, device):
+    a = cfg.attn
+    g, t = kvcache.split_features(a.n_kv_heads, a.d_head)
+    probe = {"codes": torch.empty((1, g * 32, capacity), dtype=torch.uint8, device="meta"),
+             "meta": torch.empty((1, g, capacity), dtype=torch.int32, device="meta"),
+             "tail": torch.empty((1, t, capacity), dtype=torch.bfloat16, device="meta")}
+    info = attention_dispatch_info(ctx.quant, probe, n_kv_heads=a.n_kv_heads,
+                                   d_head=a.d_head, device=device)
+    print(f"packed attention: {'fused' if info['fused'] else 'plain'} "
+          f"[{info['execution']}] kv tile {info['block_kv']} of "
+          f"{capacity} slots")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--quant", default="hif4")
+    ap.add_argument("--impl", default="packed", choices=["qdq", "packed", "pallas"])
+    ap.add_argument("--decode-chunk", type=int, default=0,
+                    help="tokens between host checks of the eos mask")
+    ap.add_argument("--kv-format", default="bf16", choices=list(kvcache.KV_FORMATS))
+    ap.add_argument("--policy", default=None,
+                    help="per-site quantization policy: paper-iv, "
+                         "sensitive-fallback, uniform:<fmt> or a policy JSON")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and prompts")
+    for flag in NOT_YET_PORTED_FLAGS:
+        ap.add_argument("--" + flag.replace("_", "-"), default=None,
+                        nargs="?", const=True, help="not yet ported")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    for flag in NOT_YET_PORTED_FLAGS:
+        if getattr(args, flag) is not None:
+            print(f"--{flag.replace('_', '-')} is not yet ported to repro_torch",
+                  file=sys.stderr)
+            return 2
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    kv = kvcache.KVCacheConfig(args.kv_format)
+    plan = None
+    if args.policy is not None:
+        plan = lm.quant_plan(cfg, get_policy(args.policy, impl=args.impl, kv=kv))
+        quant = plan.base
+    else:
+        quant = QuantConfig(fmt=args.quant, impl=args.impl, kv=kv)
+    ctx = ModelCtx(quant=quant, plan=plan, attn_q_chunk=32, attn_k_chunk=32)
+
+    params = lm.init_params(cfg, args.seed, device=device)
+    serving_params = prepare_params_for_serving(params, cfg, plan or quant,
+                                                device=device)
+    if plan is not None:
+        _print_plan(plan, serving_params)
+    nbytes, nvals = packed_weight_bytes(serving_params)
+    if nvals:
+        print(f"packed weight residency: {nbytes / 2**20:.2f} MiB for "
+              f"{nvals} values = {nbytes / nvals:.4f} B/value "
+              f"(bf16 would be {2 * nvals / 2**20:.2f} MiB)")
+        _print_kernel_dispatch(serving_params, ctx, args, device)
+    else:
+        print(f"impl={args.impl}: no packed weights resident "
+              f"(fake-quant bf16 artifact)")
+
+    sc = ServeConfig(max_new_tokens=args.new_tokens, decode_chunk=args.decode_chunk)
+    a = cfg.attn
+    kv_fmt = resolve_kv_format(cfg, ctx.quant, sc, verbose=True)
+    cap = args.prompt_len + args.new_tokens
+    per_tok = kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, kv_fmt) * cfg.n_layers
+    bf16_tok = kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, "bf16") * cfg.n_layers
+    total = per_tok * cap * args.batch
+    print(f"kv cache residency [{kv_fmt}]: {per_tok} B/token "
+          f"(bf16: {bf16_tok}) x {cap} capacity x {args.batch} slots "
+          f"= {total / 2**20:.2f} MiB"
+          + (f"  [{bf16_tok / per_tok:.2f}x more slots per byte]"
+             if kv_fmt == "hif4" else ""))
+    if kv_fmt == "hif4":
+        _print_attention_dispatch(cfg, ctx, cap, device)
+
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen)
+    sparams = serving_params if nvals else params
+    toks = serve(cfg, sparams, {"tokens": tokens}, ctx, sc, device=device)
+    for i in range(args.batch):
+        print(f"request {i}: {toks[i].tolist()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

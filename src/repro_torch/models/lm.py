@@ -1,0 +1,242 @@
+"""Language model entry points, dense family (port of ``repro/models/lm.py``).
+
+  abstract_params(cfg)                       -> PSpec tree (no allocation)
+  init_params(cfg, seed, device=...)         -> materialized params
+  prefill(params, batch, cfg, ctx)           -> (last-token logits, decode cache)
+  decode_step(params, token, cache, cfg, ctx)-> (logits, cache)
+
+Params and caches are nested dicts of tensors in the reference's layout:
+stacked-layer leaves carry a leading L axis, and the forward walks the layers
+in a Python loop over per-layer views (the reference's ``lax.scan``). The
+decode cache is updated in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import kvcache
+from repro_torch.core.policy import STACKED_COLLECTIONS, QuantPlan, QuantPolicy
+from repro_torch.core.qlinear import PackedW, QuantConfig
+from repro_torch.device import DeviceLike
+from repro_torch.models import transformer as tf
+from repro_torch.models.common import ModelCtx, dense
+from repro_torch.models.params import PSpec, init_from_specs, stack_specs
+
+PORTED_FAMILIES = ("dense",)
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not yet ported to repro_torch "
+            f"(have {PORTED_FAMILIES})")
+
+
+def _tblock_specs(cfg: ArchConfig) -> dict:
+    return {"norm1": tf.norm_specs(cfg), "attn": tf.attn_specs(cfg),
+            "norm2": tf.norm_specs(cfg), "mlp": tf.mlp_specs(cfg)}
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    _check_family(cfg)
+    d, v = cfg.d_model, cfg.vocab
+    specs: dict = {
+        "embed": PSpec((v, d), ("vocab", "fsdp"), std=0.02),
+        "final_norm": tf.norm_specs(cfg),
+        "blocks": stack_specs(_tblock_specs(cfg), cfg.n_layers),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = PSpec((d, v), ("fsdp", "vocab"), std=0.02)
+    return specs
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, *,
+                device: DeviceLike = None) -> dict:
+    """Random weights from ``seed`` (see :func:`init_from_specs`)."""
+    return init_from_specs(abstract_params(cfg), seed, device=device)
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, seq: int,
+                   kv_format: str = "bf16") -> dict:
+    """Cache spec for a decode step with capacity ``seq``."""
+    _check_family(cfg)
+    return {"kv": stack_specs(tf.attn_cache_specs(cfg, batch, seq, kv_format),
+                              cfg.n_layers),
+            "pos": PSpec((), (), dtype=torch.int32, init="zeros")}
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                 ctx: ModelCtx) -> torch.Tensor:
+    # a gather, not a matmul: the "embed" site never quantizes
+    return params["embed"][tokens].to(ctx.compute_dtype)
+
+
+def lm_logits(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx
+              ) -> torch.Tensor:
+    """f32 logits from the (bf16) head, accumulated in f32. The tied head
+    contracts a transposed view of the embedding, never an f32 copy of it
+    on CUDA."""
+    x = tf.norm_apply(params["final_norm"], x, cfg)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    y = dense(x, w, quant=ctx.site_quant("lm_head"), accum_dtype=torch.float32)
+    return y.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Transformer forward
+# ---------------------------------------------------------------------------
+
+
+def layer_slice(tree, i: int):
+    """Per-layer view of a stacked subtree (tensors and PackedW)."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, PackedW):
+        return tree.layer(i)
+    return tree[i]
+
+
+def _tblock_apply(p, x, cfg, ctx, *, mode, cache=None, pos=None):
+    h = tf.norm_apply(p["norm1"], x, cfg)
+    if mode == "decode":
+        a, new_cache = tf.attn_decode(p["attn"], h, cache, pos, cfg, ctx)
+    else:
+        a, new_cache = tf.attn_full(p["attn"], h, cfg, ctx,
+                                    return_cache=(mode == "prefill"))
+    x = x + a
+    h2 = tf.norm_apply(p["norm2"], x, cfg)
+    return x + tf.mlp_apply(p["mlp"], h2, cfg, ctx), new_cache
+
+
+def _transformer_forward(params, x, cfg, ctx, *, mode, caches=None, pos=None):
+    """x (B, S, d). prefill returns the stacked {"k","v"} caches
+    (L, B, S, Hkv, Dh); decode updates ``caches`` in place."""
+    bctx = ctx.scoped("blocks")
+    kvs = []
+    for i in range(cfg.n_layers):
+        p_layer = layer_slice(params["blocks"], i)
+        cache = layer_slice(caches, i) if mode == "decode" else None
+        x, kv = _tblock_apply(p_layer, x, cfg, bctx, mode=mode, cache=cache,
+                              pos=pos)
+        if mode == "prefill":
+            kvs.append(kv)
+    if mode == "prefill":
+        return x, {key: torch.stack([kv[key] for kv in kvs]) for key in ("k", "v")}
+    return x, caches
+
+
+def prefill(params: dict, batch: dict, cfg: ArchConfig, ctx: ModelCtx):
+    """Process the prompt; return (last-token logits (B, V), decode cache)."""
+    _check_family(cfg)
+    x = embed_tokens(params, batch["tokens"], cfg, ctx)
+    h, caches = _transformer_forward(params, x, cfg, ctx, mode="prefill")
+    logits = lm_logits(params, h[:, -1:], cfg, ctx)[:, 0]
+    return logits, {"kv": caches, "pos": x.shape[1]}
+
+
+def pad_cache(cache: dict, cfg: ArchConfig, capacity: int) -> dict:
+    """Grow the prefill KV cache along the token axis to ``capacity``
+    (dense leaves (L, B, S, Hkv, Dh) pad axis 2; packed leaves their own
+    layout's token axis). Zero padding is inert under the length mask."""
+    def pad_dense(x):
+        s = x.shape[2]
+        if s >= capacity:
+            return x
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, capacity - s))
+
+    kv = cache["kv"]
+    out = dict(cache)
+    out["kv"] = {name: (kvcache.pad_tokens(t, capacity) if kvcache.is_packed_kv(t)
+                        else pad_dense(t)) for name, t in kv.items()}
+    return out
+
+
+def quantize_kv_cache(cache: dict, cfg: ArchConfig) -> dict:
+    """Convert a prefill KV cache to the HiF4-packed kernel-tile layout
+    (one-time; bit-identical to appending the tokens one at a time). Layers
+    are packed one at a time to bound the float32 working set."""
+    _check_family(cfg)
+
+    def pack(t):
+        per_layer = [kvcache.to_kernel_layout(kvcache.quantize_kv(t[i]))
+                     for i in range(t.shape[0])]
+        return {key: torch.stack([p[key] for p in per_layer])
+                for key in ("codes", "meta", "tail")}
+
+    out = dict(cache)
+    out["kv"] = {"k": pack(cache["kv"]["k"]), "v": pack(cache["kv"]["v"])}
+    return out
+
+
+def decode_step(params: dict, token: torch.Tensor, cache: dict,
+                cfg: ArchConfig, ctx: ModelCtx):
+    """token (B,) -> (logits (B, V), cache advanced by one token, in place)."""
+    pos = cache["pos"]
+    x = embed_tokens(params, token[:, None], cfg, ctx)            # (B, 1, d)
+    h, kv = _transformer_forward(params, x, cfg, ctx, mode="decode",
+                                 caches=cache["kv"], pos=pos)
+    logits = lm_logits(params, h[:, -1:], cfg, ctx)[:, 0]
+    return logits, {"kv": kv, "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# Packed-weight serving conversion (HiF4 4.5-bit deployment artifact)
+# ---------------------------------------------------------------------------
+
+
+def quant_plan(cfg: ArchConfig, policy) -> QuantPlan:
+    """Resolve a policy (or a global QuantConfig, via the uniform shim)
+    against this architecture's param specs."""
+    if isinstance(policy, QuantPlan):
+        return policy
+    if isinstance(policy, QuantConfig):
+        policy = QuantPolicy.uniform(policy)
+    return policy.resolve(abstract_params(cfg), family=cfg.family)
+
+
+def _marker_geometry(site, axes: tuple):
+    """(out_name, c_name) logical axes of a packed STACKED site spec."""
+    ca = site.contract_axes
+    out_axes = tuple(a for a in range(1, len(site.shape)) if a not in ca)
+    out_name = next((axes[a] for a in out_axes if axes[a] is not None), None)
+    c_name = next((axes[a] for a in ca if axes[a] is not None), None)
+    return out_name, c_name
+
+
+def pack_params_for_serving(params: dict, cfg: ArchConfig,
+                            plan: Optional[QuantPlan] = None) -> dict:
+    """Pack EXACTLY the sites ``plan`` marks packed into stacked PackedW
+    leaves (artifact layout); every other leaf passes through."""
+    if plan is None:
+        plan = quant_plan(cfg, QuantConfig(fmt="hif4", impl="packed"))
+    specs = abstract_params(cfg)
+
+    def walk(p_node, s_node, parts):
+        if isinstance(s_node, PSpec):
+            site = plan.get(".".join(parts))
+            if site is None or not site.packed:
+                return p_node
+            ca = tuple(a - 1 for a in site.contract_axes)
+            stacked = [PackedW.from_dense(p_node[i], ca)
+                       for i in range(p_node.shape[0])]
+            return PackedW(torch.stack([s.codes for s in stacked]),
+                           torch.stack([s.meta for s in stacked]),
+                           stacked[0].shape2d, p_node.dtype,
+                           _marker_geometry(site, s_node.axes))
+        if isinstance(s_node, dict):
+            return {k: walk(p_node[k], v, parts + (k,)) for k, v in s_node.items()}
+        return p_node
+
+    out = dict(params)
+    for blk in STACKED_COLLECTIONS:
+        if blk in out:
+            out[blk] = walk(params[blk], specs[blk], (blk,))
+    return out

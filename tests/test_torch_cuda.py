@@ -1,0 +1,83 @@
+"""The three CUDA kernels of the port against their plain PyTorch versions,
+on a CUDA card. Every test here carries the ``cuda`` marker and skips
+without a card (the kernels have no interpret mode); the file imports no
+JAX, so it runs on the card's machine:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: hif4_quantize bitwise; fused_packed_matmul within 1e-5 of the
+summed group magnitudes (only the f32 order of the sum over 64-groups may
+differ); fused_decode_attention rtol=2^-7, atol=1e-3 (f32 sum orders and
+``expf`` differ from the plain version); an E6M2 0xFF meta word yields NaN
+in its slot only, as in the plain version.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import hif4, kvcache
+from repro_torch.core.qlinear import PackedW
+from repro_torch.kernels import build
+from repro_torch.kernels import fused_attention as TA
+from repro_torch.kernels import fused_matmul as TM
+from repro_torch.kernels import hif4_quant as TQ
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no interpret mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _act(seed, m, k, device):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)) * np.exp2(rng.uniform(-10, 10, (m, k // 64))
+                                              ).repeat(64, axis=1)
+    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16).to(device)
+
+
+@pytest.mark.parametrize("m, k", [(8, 1024), (64, 2816)])
+def test_quantize_bitwise(cuda, m, k):
+    x = _act(11, m, k, cuda)
+    build.reset_launches()
+    ki, ks = TQ.hif4_quantize(x)
+    pi, ps = TQ.absorbed_activation(x)
+    assert build.LAUNCHES["hif4_quantize"] == 1
+    assert torch.equal(ki, pi) and torch.equal(ks.view(torch.int32),
+                                               ps.view(torch.int32))
+
+
+@pytest.mark.parametrize("m, k, n", [(8, 1024, 2816), (300, 2816, 1024)])
+def test_matmul_vs_plain(cuda, m, k, n):
+    g = torch.Generator().manual_seed(12)
+    w = (torch.randn(k, n, generator=g) * 0.02).to(torch.bfloat16).to(cuda)
+    pw = PackedW.from_dense(w).to_kernel_layout()
+    ai, asc = TQ.absorbed_activation(_act(12, m, k, cuda))
+    y = TM.fused_packed_matmul(ai, asc, pw.codes, pw.meta)
+    ref = TM.fused_packed_matmul_plain(ai, asc, pw.codes, pw.meta)
+    b_ints, b_sc = hif4.absorbed_int_km(pw.codes, pw.meta)
+    abs_sum = TM._tile_group_dot(ai.abs(), asc.abs(), b_ints.abs(), b_sc.abs())
+    assert bool(((y - ref).abs() <= 1e-5 * abs_sum).all())
+
+
+@pytest.mark.parametrize("hkv, rep, d, s", [(16, 1, 64, 512), (4, 2, 32, 160)])
+def test_attention_vs_plain(cuda, hkv, rep, d, s):
+    g = torch.Generator().manual_seed(13)
+    b = 6
+    mk = lambda *shape: (torch.randn(*shape, generator=g) * 0.5).to(torch.bfloat16).to(cuda)
+    q = mk(b, hkv * rep, d)
+    pk = kvcache.to_kernel_layout(kvcache.quantize_kv(mk(b, s, hkv, d)))
+    pv = kvcache.to_kernel_layout(kvcache.quantize_kv(mk(b, s, hkv, d)))
+    length = torch.tensor([1, 63, 64, 65, s, s - 1], dtype=torch.int32, device=cuda)
+    out = TA.fused_decode_attention(q, pk, pv, length, n_kv_heads=hkv, d_head=d)
+    ref = TA.fused_decode_attention_plain(q, pk, pv, length, hkv, d)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    pk["meta"][2, 0, 3] |= -(1 << 24)                 # E6M2 code 0xFF
+    out = TA.fused_decode_attention(q, pk, pv, length, n_kv_heads=hkv, d_head=d)
+    ref = TA.fused_decode_attention_plain(q, pk, pv, length, hkv, d)
+    assert torch.equal(out.isnan(), ref.isnan()) and bool(out[2].isnan().any())
+    assert not bool(out[[0, 1, 3, 4, 5]].isnan().any())

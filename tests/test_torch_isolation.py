@@ -1,0 +1,113 @@
+"""Ground rules of the PyTorch port.
+
+* No file of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX or
+  anything of the JAX package (an AST scan of every import).
+* Entry points run on ``cuda`` unless the caller asks for the CPU: without a
+  CUDA device they raise instead of running on the CPU.
+* What the port does not carry yet raises "not yet ported".
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import interop
+from repro_torch.configs import get_arch
+from repro_torch.core.formats import get_format
+from repro_torch.device import resolve_device
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import lm
+from repro_torch.models.common import ModelCtx
+from repro_torch.runtime.serve_loop import ServeConfig, prepare_params_for_serving, serve
+
+# One intra-op thread: the suite runs several pytest-xdist workers at once,
+# and torch's default pool (a thread per core in each) oversubscribes the CPU.
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [(str(f.relative_to(REPO)), mod) for f in files
+           for mod in _imported_modules(f)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_imports_in_a_process_without_jax():
+    """Importing every module of the port loads no JAX module."""
+    code = ("import sys, pkgutil, importlib, repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+@pytest.mark.parametrize("entry", ["resolve_device", "init_params", "prepare",
+                                   "serve", "interop", "launcher"])
+def test_entry_points_raise_without_cuda(no_cuda, entry):
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    calls = {
+        "resolve_device": lambda: resolve_device(),
+        "init_params": lambda: lm.init_params(cfg, 0),
+        "prepare": lambda: prepare_params_for_serving(
+            lm.init_params(cfg, 0, device="cpu"), cfg, lm.quant_plan(
+                cfg, lm.QuantConfig(fmt="hif4", impl="packed"))),
+        "serve": lambda: serve(cfg, lm.init_params(cfg, 0, device="cpu"),
+                               {"tokens": torch.zeros(1, 4, dtype=torch.long)},
+                               ModelCtx(), ServeConfig(max_new_tokens=2)),
+        "interop": lambda: interop.params_from_jax({"w": [1.0, 2.0]}),
+        "launcher": lambda: launch_serve.main(["--arch", "qwen1.5-0.5b",
+                                               "--reduced"]),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_cpu_runs_only_when_asked():
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    params = lm.init_params(cfg, 0, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_not_yet_ported_parts_raise():
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_format("nvfp4")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        lm.abstract_params(get_arch("qwen1.5-0.5b").__class__(
+            name="m", family="moe", n_layers=1, d_model=64, vocab=8))
+    with pytest.raises(ValueError):
+        get_format("fp3")
