@@ -6,7 +6,8 @@
 Phases (any failure ends the run with a nonzero exit):
 
 1. device  — a CUDA device, its name and power limit (nvidia-smi);
-2. build   — the three CUDA kernels of src/repro_torch/csrc, built with nvcc;
+2. build   — the CUDA kernels of src/repro_torch/csrc (three sources, four
+             kernels), built with nvcc, one process per source in parallel;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes of the main path, with times (CUDA events) beside
              the least time the card could take (bound_ms) and a library
@@ -23,6 +24,13 @@ Phases (any failure ends the run with a nonzero exit):
              bit, and HiF4 activation quantization amplifies those flips).
              Greedy tokens must agree, or differ only where the reference's
              top-2 logit gap is within that tolerance.
+6. paged   — the paged path at full width and depth: 12 requests sharing a
+             256-token prefix through 8 slots and a 24-page HiF4 pool
+             (P=64, 32 new tokens, decode chunk 8), which shows shared-prefix
+             hits, a COW copy, LRU evictions and a preemption; every
+             request's tokens must equal its solo serve at attn_kv_block=P,
+             kernel 4 must launch exactly 24 x the decode steps and kernel 3
+             never.
 
 The last lines are the kernel records as one JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. The script imports
@@ -47,6 +55,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
+# distinct input copies a timing loop cycles through (> the 50 MB L2)
+L2_ROTATION = 24
 
 
 class PhaseError(RuntimeError):
@@ -282,6 +292,168 @@ def check_attention(dev, records):
         "shape": "B=8 Hkv=16 D=64 S=512"}
 
 
+def _paged_pool(n_pages, P, hkv, d, gen, dev):
+    """Per-layer pool leaves (NP, F/2, P) / (NP, G, P) holding real
+    quantized tokens."""
+    import torch
+    from repro_torch.core import kvcache
+
+    kv = (torch.randn(n_pages * P, hkv, d, generator=gen) * 0.5).to(torch.bfloat16)
+    pk = kvcache.to_kernel_layout(kvcache.quantize_kv(kv.to(dev)))
+    return {key: a.reshape(a.shape[0], n_pages, P).transpose(0, 1).contiguous()
+            for key, a in pk.items()}
+
+
+def _contiguous_from_pages(pool, pages):
+    """The bytes a page table names, laid out as a contiguous cache
+    (B, F, max_pages * P)."""
+    out = {}
+    for key, a in pool.items():
+        g = a[pages.long()]                                 # (B, maxp, F, P)
+        b, maxp, f, p = g.shape
+        out[key] = g.permute(0, 2, 1, 3).reshape(b, f, maxp * p).contiguous()
+    return out
+
+
+def _compare_paged(q, kp, vp, pages, length, hkv, d, P, label) -> float:
+    """Kernel 4 against its plain version (rtol 2^-7, atol 1e-3) and against
+    kernel 3 at block_kv = P on the same bytes laid out contiguously
+    (bitwise); returns the max |d| against the plain version."""
+    import torch
+    from repro_torch.kernels.fused_attention import (
+        fused_decode_attention, fused_paged_decode_attention,
+        fused_paged_decode_attention_plain)
+
+    out = fused_paged_decode_attention(q, kp, vp, pages, length,
+                                       n_kv_heads=hkv, d_head=d)
+    ref = fused_paged_decode_attention_plain(q, kp, vp, pages, length, hkv, d)
+    cont = fused_decode_attention(q, _contiguous_from_pages(kp, pages),
+                                  _contiguous_from_pages(vp, pages), length,
+                                  n_kv_heads=hkv, d_head=d, block_kv=P)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    check(bool((err <= 1e-3 + 2 ** -7 * ref.float().abs()).all()),
+          f"fused_paged_decode_attention {label}: max |d| {float(err.max())} "
+          f"beyond rtol=2^-7, atol=1e-3")
+    check(torch.equal(out.view(torch.int16), cont.view(torch.int16)),
+          f"fused_paged_decode_attention {label}: not bitwise equal to "
+          f"fused_decode_attention at block_kv={P}")
+    print(f"  fused_paged_decode_attention {label}: max |d| {float(err.max()):.3e} "
+          f"vs plain; bitwise equal to fused_decode_attention at block_kv={P}")
+    return float(err.max())
+
+
+def check_paged_attention(dev, records):
+    """Kernel 4 against its plain version (rtol 2^-7, atol 1e-3) and against
+    kernel 3 at block_kv = P on the same bytes laid out contiguously
+    (bitwise), on tables with pages shared by two slots, trailing scratch
+    entries and partial last pages; NaN metadata in one page reaches only
+    the slots holding it; then timed at the decode shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import kvcache
+    from repro_torch.kernels.fused_attention import (
+        fused_paged_decode_attention, fused_paged_decode_attention_plain)
+
+    gen = torch.Generator().manual_seed(14)
+    worst = 0.0
+    pages = torch.tensor([[3, 7, 1, 9], [3, 7, 4, 10], [2, 11, 0, 0], [5, 0, 0, 0],
+                          [6, 8, 12, 13], [14, 15, 0, 0], [3, 16, 17, 0],
+                          [18, 19, 20, 21]], dtype=torch.int32, device=dev)
+    for hkv, d in ((16, 64), (4, 32)):
+        for P in (16, 64):
+            kp = _paged_pool(24, P, hkv, d, gen, dev)
+            vp = _paged_pool(24, P, hkv, d, gen, dev)
+            q = (torch.randn(8, hkv, d, generator=gen) * 0.5).to(torch.bfloat16).to(dev)
+            length = torch.tensor([4 * P, 3 * P + 1, P + P // 2, 1, 4 * P - 1,
+                                   2 * P, 2 * P + 3, 3 * P + P // 4],
+                                  dtype=torch.int32, device=dev)
+            label = f"Hkv={hkv} D={d} P={P} max_pages=4"
+            worst = max(worst, _compare_paged(q, kp, vp, pages, length, hkv, d,
+                                              P, label))
+            # trailing scratch entries are exact no-ops: slots 2 and 3 with
+            # their tables cut to two entries give the same bits
+            out = fused_paged_decode_attention(q, kp, vp, pages, length,
+                                               n_kv_heads=hkv, d_head=d)
+            cut = fused_paged_decode_attention(
+                q[2:4], kp, vp, pages[2:4, :2].contiguous(), length[2:4],
+                n_kv_heads=hkv, d_head=d)
+            torch.cuda.synchronize()
+            check(torch.equal(out[2:4].view(torch.int16), cut.view(torch.int16)),
+                  f"fused_paged_decode_attention {label}: trailing scratch "
+                  f"entries changed the output")
+            print(f"  fused_paged_decode_attention {label}: trailing scratch "
+                  f"entries exact no-ops")
+            bad = {key: t.clone() for key, t in kp.items()}
+            bad["meta"][7, 0, 2] |= -(1 << 24)     # page 7: slots 0 and 1 only
+            out = fused_paged_decode_attention(q, bad, vp, pages, length,
+                                               n_kv_heads=hkv, d_head=d)
+            ref = fused_paged_decode_attention_plain(q, bad, vp, pages, length, hkv, d)
+            torch.cuda.synchronize()
+            holders = out.isnan().flatten(1).any(1).tolist()
+            check(torch.equal(out.isnan(), ref.isnan())
+                  and holders == [True, True] + [False] * 6,
+                  f"fused_paged_decode_attention Hkv={hkv} D={d} P={P}: NaN "
+                  f"reached slots {holders}, expected the holders of page 7")
+    print("  fused_paged_decode_attention: E6M2 0xFF meta in a page -> NaN in "
+          "the two slots whose tables hold it, as in the plain version")
+    # the paged phase's shape: 24 pages of P=64, tables of 8 entries (tiles
+    # 4-7 in use), lengths up to 8P, a shared prefix, partial last pages
+    # and trailing scratch entries
+    B, hkv, d, P, maxp = 8, 16, 64, 64, 8
+    main = torch.tensor([[1, 2, 3, 4, 5, 6, 7, 8], [1, 2, 3, 4, 9, 10, 11, 0],
+                         [1, 2, 3, 4, 9, 12, 0, 0], [1, 2, 3, 4, 13, 14, 15, 16],
+                         [17, 18, 19, 20, 21, 0, 0, 0], [1, 2, 3, 4, 22, 0, 0, 0],
+                         [23, 0, 0, 0, 0, 0, 0, 0], [1, 2, 3, 4, 5, 6, 7, 8]],
+                        dtype=torch.int32, device=dev)
+    kp, vp = (_paged_pool(24, P, hkv, d, gen, dev) for _ in range(2))
+    q = (torch.randn(B, hkv, d, generator=gen) * 0.5).to(torch.bfloat16).to(dev)
+    length = torch.tensor([8 * P, 7 * P - 5, 5 * P + 40, 8 * P - 1, 5 * P, 4 * P + 1,
+                           33, 7 * P + 1], dtype=torch.int32, device=dev)
+    worst = max(worst, _compare_paged(q, kp, vp, main, length, hkv, d, P,
+                                      "Hkv=16 D=64 P=64 max_pages=8 NP=24"))
+    n_pages = 1 + B * maxp
+    table = torch.arange(1, n_pages, dtype=torch.int32, device=dev).reshape(B, maxp)
+    pools = [(_paged_pool(n_pages, P, hkv, d, gen, dev),
+              _paged_pool(n_pages, P, hkv, d, gen, dev)) for _ in range(L2_ROTATION)]
+    q = (torch.randn(B, hkv, d, generator=gen) * 0.5).to(torch.bfloat16).to(dev)
+    length = torch.full((B,), maxp * P, dtype=torch.int32, device=dev)
+    args = [(q, kp, vp, table, length) for kp, vp in pools]
+    worst = max(worst, _compare_paged(*args[0], hkv, d, P,
+                                      "timed shape B=8 Hkv=16 D=64 P=64 max_pages=8"))
+    ms = cuda_ms(lambda *a: fused_paged_decode_attention(*a, n_kv_heads=hkv, d_head=d),
+                 args, iters=100)
+    plain_ms = cuda_ms(lambda *a: fused_paged_decode_attention_plain(*a, hkv, d),
+                       args, iters=20)
+    dense = []
+    for kp, vp in pools:
+        kd = kvcache.dequantize_kv(_contiguous_from_pages(kp, table), hkv, d)
+        vd = kvcache.dequantize_kv(_contiguous_from_pages(vp, table), hkv, d)
+        dense.append((q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)))
+    library_ms = cuda_ms(F.scaled_dot_product_attention, dense, iters=100)
+    # bytes the table names (each page once) + q, out, table and lengths
+    n_read = int(table.unique().numel())
+    page_bytes = sum(a[0].numel() * a.element_size()
+                     for kp_vp in pools[0] for a in (kp_vp["codes"], kp_vp["meta"]))
+    nbytes = n_read * page_bytes + 2 * q.numel() * 2 + table.numel() * 4 + B * 4
+    ops = 4 * B * hkv * maxp * P * d
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S) * 1e3
+    print(f"  fused_paged_decode_attention decode B=8 Hkv=16 D=64 P=64 "
+          f"max_pages=8: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+          f"bound_ms={bound_ms:.6f} (bytes: {nbytes} B) library_ms="
+          f"{library_ms:.5f} (scaled_dot_product_attention on the gathered, "
+          f"dequantized bf16 K/V, not the same function)")
+    records["fused_paged_decode_attention"] = {
+        "name": "fused_paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_attention.cu",
+        "replaces": "src/repro/kernels/fused_attention.py:312",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+        "library": "scaled_dot_product_attention on gathered, dequantized "
+                   "bf16 K/V, not the same function",
+        "shape": "B=8 Hkv=16 D=64 P=64 max_pages=8"}
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
@@ -347,11 +519,13 @@ def phase_serve(dev, seed, records):
     sites = 7                                 # wq wk wv wo wg wu wo per layer
     want = {"hif4_quantize": cfg.n_layers * sites * (1 + steps),
             "fused_packed_matmul": cfg.n_layers * sites * (1 + steps),
-            "fused_decode_attention": cfg.n_layers * steps}
+            "fused_decode_attention": cfg.n_layers * steps,
+            "fused_paged_decode_attention": 0}
     print(f"  launches on the main path: {launches} (expected {want})")
     check(launches == want, f"launch counts {launches} != expected {want}")
     for name, n in launches.items():
-        records[name]["launches"] = n
+        if n:
+            records.setdefault(name, {})["launches"] = n
     print(f"  request 0: {toks[0].tolist()}")
 
 
@@ -369,8 +543,9 @@ def plain_versions():
     engine.hif4_quantize = absorbed_activation
     engine.fused_packed_matmul = fused_packed_matmul_plain
     engine.fused_decode_attention = (
-        lambda q, k, v, length, *, n_kv_heads, d_head:
-        fused_decode_attention_plain(q, k, v, length, n_kv_heads, d_head))
+        lambda q, k, v, length, *, n_kv_heads, d_head, block_kv=None:
+        fused_decode_attention_plain(q, k, v, length, n_kv_heads, d_head,
+                                     block_kv=block_kv))
     try:
         yield
     finally:
@@ -407,7 +582,8 @@ def phase_e2e(dev, seed):
 
     build.reset_launches()
     run("card", dev)
-    check(all(n > 0 for n in build.LAUNCHES.values()),
+    check(all(n > 0 for k, n in build.LAUNCHES.items()
+              if k != "fused_paged_decode_attention"),
           f"the card run launched {build.LAUNCHES}")
     with plain_versions():
         run("card-plain", dev)
@@ -478,12 +654,157 @@ def _top2(cfg, params, ctx, prompt, emitted, device, *, plain: bool):
     return float(top[0]), float(top[1])
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the paged path
+# ---------------------------------------------------------------------------
+
+# 12 requests through 8 slots: a 256-token system prefix (4 pages) and tails
+# of 32-224 tokens; request 2 is request 1 cut 16 tokens into its partial
+# tail page (it shares that page, then its first append copies it). 24 pages
+# are too few for every sequence's growth: the run evicts LRU pages and
+# preempts. Lengths are multiples of the prefill flash chunk, so a prefix's
+# K/V bytes do not depend on the prompt around it.
+PAGED = {"page_tokens": 64, "new_tokens": 32, "decode_chunk": 8, "slots": 8,
+         "prefix": 256, "tails": (224, 96, 160, 32, 192, 128, 64, 208, 144, 48,
+                                  176), "kv_pages": 24, "flash_chunk": 16}
+
+
+def paged_requests(vocab: int, seed: int) -> list:
+    import torch
+
+    g = torch.Generator().manual_seed(seed + 5)
+    prefix = torch.randint(0, vocab, (PAGED["prefix"],), generator=g)
+    reqs = [torch.cat([prefix, torch.randint(0, vocab, (n,), generator=g)])
+            for n in PAGED["tails"]]
+    reqs.insert(2, reqs[1][: len(reqs[1]) - 16])
+    return reqs
+
+
+def _scaled(tree, f: float):
+    if isinstance(tree, dict):
+        return {k: _scaled(v, f) for k, v in tree.items()}
+    return tree * f
+
+
+def phase_paged(dev, seed, records):
+    """The paged path at full width and depth: serve_requests with the HiF4
+    page pool (kernel 4 for every layer of every decode step), held request
+    by request against a solo serve at attn_kv_block = P."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import kvcache
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    from repro_torch.runtime import serve_loop
+    from repro_torch.runtime.serve_loop import (
+        ServeConfig, prepare_params_for_serving, serve, serve_requests)
+
+    cfg = get_arch("qwen1.5-0.5b")
+    t = PAGED
+    P, new = t["page_tokens"], t["new_tokens"]
+    ctx = dataclasses.replace(serving_setup(cfg), attn_q_chunk=t["flash_chunk"],
+                              attn_k_chunk=t["flash_chunk"])
+    # the blocks and the embedding at 5x the init's scale: greedy tokens then
+    # change from step to step (at the init's scale they repeat one token),
+    # so a wrong KV byte shows in the tokens
+    params = lm.init_params(cfg, seed + 4, device="cpu")
+    params = dict(params, blocks=_scaled(params["blocks"], 5.0),
+                  embed=params["embed"] * 5.0)
+    sparams = prepare_params_for_serving(params, cfg, ctx.plan, device=dev)
+    del params
+    reqs = paged_requests(cfg.vocab, seed)
+    cap = max(len(r) for r in reqs) + new
+    cap = -(-cap // P) * P
+    a = cfg.attn
+    page_bytes = kvcache.page_nbytes(a.n_kv_heads, a.d_head, P, cfg.n_layers)
+    print(f"  {len(reqs)} requests (prompts {[len(r) for r in reqs]}) through "
+          f"{t['slots']} slots; pool {t['kv_pages']} pages x {P} tokens = "
+          f"{t['kv_pages'] * page_bytes} B ({page_bytes} B/page; whole-slot "
+          f"equivalent {t['slots'] * cap // P * page_bytes} B)")
+    sc = ServeConfig(max_new_tokens=new, decode_chunk=t["decode_chunk"],
+                     cache_capacity=cap, kv_format="hif4", kv_pages=t["kv_pages"],
+                     kv_page_tokens=P)
+    counts = {"cow": 0, "steps": 0, "chunks": 0, "chunk_s": 0.0}
+    copy, chunk_fn = serve_loop._pool_copy, serve_loop._decode_chunk
+
+    def counting_copy(*args):
+        counts["cow"] += 1
+        return copy(*args)
+
+    def timed_chunk(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = chunk_fn(*args)
+        torch.cuda.synchronize()
+        counts["chunk_s"] += time.perf_counter() - t0
+        counts["chunks"] += 1
+        counts["steps"] += args[4]
+        return out
+
+    serve_requests(cfg, sparams, reqs[:1], ctx,
+                   dataclasses.replace(sc, max_new_tokens=2), device=dev)  # warm-up
+    serve_loop._pool_copy, serve_loop._decode_chunk = counting_copy, timed_chunk
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        res = serve_requests(cfg, sparams, reqs, ctx, sc, slots=t["slots"],
+                             stats=stats, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    finally:
+        serve_loop._pool_copy, serve_loop._decode_chunk = copy, chunk_fn
+    steps = counts["steps"]
+    print(f"  paged run: {wall:.2f} s wall, {counts['chunks']} chunks of "
+          f"{t['decode_chunk']} decode steps ({steps} steps), "
+          f"{1e3 * counts['chunk_s'] / steps:.2f} ms per decode step of "
+          f"{t['slots']} slots ({1e3 * counts['chunk_s'] / counts['chunks']:.1f} "
+          f"ms per chunk); {card_line()}")
+    print(f"  scheduler: max {stats['max_concurrent']} concurrent, "
+          f"{stats['shared_page_hits']} shared-page hits, {counts['cow']} COW "
+          f"copies, {stats['evictions']} LRU evictions, {stats['preemptions']} "
+          f"preemptions (snapshots restored), peak {stats['peak_live_pages']}/"
+          f"{t['kv_pages']} pages live, pool {stats['pool_bytes']} B, audit "
+          f"{stats['pool_audit']}")
+    check(stats["shared_page_hits"] >= 1 and counts["cow"] >= 1
+          and stats["evictions"] >= 1 and stats["preemptions"] >= 1,
+          "the paged run must show shared-prefix hits, a COW copy, an LRU "
+          "eviction and a preemption")
+    want4 = cfg.n_layers * steps
+    print(f"  launches in the paged run: {launches} (fused_paged_decode_attention "
+          f"expected {cfg.n_layers} x {steps} = {want4}, fused_decode_attention 0)")
+    check(launches["fused_paged_decode_attention"] == want4
+          and launches["fused_decode_attention"] == 0,
+          f"paged run launches {launches}")
+    check(all(n > 0 for k, n in launches.items() if k != "fused_decode_attention"),
+          f"paged run launched {launches}")
+    records.setdefault("fused_paged_decode_attention", {})["launches"] = launches[
+        "fused_paged_decode_attention"]
+    solo_ctx = dataclasses.replace(ctx, attn_kv_block=P)
+    solo_sc = ServeConfig(max_new_tokens=new, cache_capacity=cap, kv_format="hif4")
+    differ = []
+    for i, r in enumerate(reqs):
+        solo = serve(cfg, sparams, {"tokens": r[None]}, solo_ctx, solo_sc,
+                     device=dev)[0].cpu()
+        check(tuple(res[i].shape) == (new,), f"request {i}: shape {res[i].shape}")
+        if not torch.equal(res[i], solo):
+            differ.append(i)
+            print(f"  request {i}: paged {res[i].tolist()} != solo {solo.tolist()}")
+    n_distinct = len({tok for r in res for tok in r.tolist()})
+    print(f"  paged == solo at attn_kv_block={P}: {len(reqs) - len(differ)} of "
+          f"{len(reqs)} requests equal ({n_distinct} distinct tokens; request 0: "
+          f"{res[0].tolist()})")
+    check(not differ, f"requests {differ}: paged tokens differ from solo")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of repro_torch")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma list of phases to run (kernels,serve,e2e); "
-                         "default all")
+                    help="comma list of phases to run (kernels,serve,e2e,"
+                         "paged); default all (paged needs kernels)")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
 
@@ -508,9 +829,11 @@ def main(argv=None) -> int:
     records: dict = {}
     phases = [("kernels", lambda: (check_quantize(dev, records),
                                    check_matmul(dev, records),
-                                   check_attention(dev, records))),
+                                   check_attention(dev, records),
+                                   check_paged_attention(dev, records))),
               ("serve", lambda: phase_serve(dev, args.seed, records)),
-              ("e2e", lambda: phase_e2e(dev, args.seed))]
+              ("e2e", lambda: phase_e2e(dev, args.seed)),
+              ("paged", lambda: phase_paged(dev, args.seed, records))]
     try:
         print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -531,10 +854,12 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print(f"FAILED: {type(e).__name__}: {e}")
         return 1
-    names = ["hif4_quantize", "fused_packed_matmul", "fused_decode_attention"]
+    names = ["hif4_quantize", "fused_packed_matmul", "fused_decode_attention",
+             "fused_paged_decode_attention"]
     print(f"kernels: {json.dumps(names)}")
     if not only:
-        print(json.dumps({"kernels": [records[n] for n in names]}))
+        print(json.dumps({"kernels": [dict(records[n], kernel_ms=records[n]["ms"])
+                                      for n in names]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,12 +26,13 @@ Dispatch is total otherwise, following the reference's fallback table:
 
 Decode attention over an HiF4-packed KV cache dispatches here too
 (:func:`attention_decode`): impl packed/pallas on a kernel-tileable cache
-takes the fused decode-attention kernel (its plain version on CPU tensors);
-every other combination runs the plain recurrence.
+takes the fused decode-attention kernel, contiguous or paged (its plain
+version on CPU tensors); every other combination runs the plain recurrence.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -46,6 +47,8 @@ from repro_torch.core.qlinear import (
 from repro_torch.kernels.fused_attention import (
     fused_decode_attention,
     fused_decode_attention_plain,
+    fused_paged_decode_attention,
+    fused_paged_decode_attention_plain,
     kernel_compatible,
     select_kv_block,
 )
@@ -200,23 +203,44 @@ def _fused_attn_ok(cfg: QuantConfig, k_cache: dict, n_kv_heads: int,
 
 def attention_decode(q, k_cache: dict, v_cache: dict, length,
                      n_kv_heads: int, d_head: int,
-                     ectx: EngineCtx = DEFAULT_ENGINE) -> torch.Tensor:
-    """Decode attention against a PACKED contiguous KV cache: the fused
-    kernel for impl packed/pallas on a kernel-tileable cache, the plain
-    recurrence otherwise."""
-    if _fused_attn_ok(ectx.quant, k_cache, n_kv_heads, d_head):
+                     ectx: EngineCtx = DEFAULT_ENGINE, *,
+                     pages: Optional[torch.Tensor] = None,
+                     block_kv: Optional[int] = None) -> torch.Tensor:
+    """Decode attention against a PACKED KV cache: the fused kernel for impl
+    packed/pallas on a kernel-tileable cache, the plain recurrence otherwise.
+
+    With ``pages`` (B, max_pages) the caches are per-layer page-POOL leaves
+    (NP, F, P) and the same dispatch picks the paged kernel / paged plain
+    version. ``block_kv`` overrides the contiguous KV tile (the paged tile
+    IS the page size); serving threads it from ``ModelCtx.attn_kv_block`` so
+    a solo reference run can tile its cache like a paged run, bitwise."""
+    fused = _fused_attn_ok(ectx.quant, k_cache, n_kv_heads, d_head)
+    if pages is not None:
+        if fused:
+            return fused_paged_decode_attention(
+                q, k_cache, v_cache, pages, length, n_kv_heads=n_kv_heads,
+                d_head=d_head)
+        return fused_paged_decode_attention_plain(
+            q, k_cache, v_cache, pages, length, n_kv_heads, d_head)
+    if fused:
         return fused_decode_attention(q, k_cache, v_cache, length,
-                                      n_kv_heads=n_kv_heads, d_head=d_head)
+                                      n_kv_heads=n_kv_heads, d_head=d_head,
+                                      block_kv=block_kv)
     return fused_decode_attention_plain(q, k_cache, v_cache, length,
-                                        n_kv_heads, d_head)
+                                        n_kv_heads, d_head, block_kv=block_kv)
 
 
 def attention_dispatch_info(quant: QuantConfig, k_cache: dict, *,
-                            n_kv_heads: int, d_head: int, device) -> dict:
+                            n_kv_heads: int, d_head: int, device,
+                            paged: bool = False) -> dict:
     """What :func:`attention_decode` will run for this cache under ``quant``
     on ``device``: ``fused`` (the CUDA kernel), ``execution``, ``block_kv``,
-    ``kernel_eligible`` (device-neutral) and ``route``."""
-    block = select_kv_block(kvcache.seq_capacity(k_cache))
+    ``kernel_eligible`` (device-neutral) and ``route``. ``paged=True``
+    answers for page-pool leaves (``pages`` passed to
+    :func:`attention_decode`)."""
+    block = (kvcache.pool_page_tokens(k_cache) if paged
+             else select_kv_block(kvcache.seq_capacity(k_cache)))
+    route = "fused_paged_decode_attention" if paged else "fused_decode_attention"
     eligible = _fused_attn_ok(quant, k_cache, n_kv_heads, d_head)
     if not eligible:
         if quant.impl not in ("packed", "pallas"):
@@ -226,14 +250,13 @@ def attention_dispatch_info(quant: QuantConfig, k_cache: dict, *,
         else:
             why = "staging tail"
         return {"fused": False, "block_kv": block, "kernel_eligible": False,
-                "route": "fused_decode_attention_plain",
+                "route": route + "_plain",
                 "execution": f"plain recurrence (chunked dequantize; {why})"}
     if torch.device(device).type != "cuda":
         return {"fused": False, "block_kv": block, "kernel_eligible": True,
-                "route": "fused_decode_attention",
-                "execution": "plain recurrence (CPU)"}
+                "route": route, "execution": "plain recurrence (CPU)"}
     return {"fused": True, "block_kv": block, "kernel_eligible": True,
-            "route": "fused_decode_attention", "execution": "CUDA fused kernel"}
+            "route": route, "execution": "CUDA fused kernel"}
 
 
 # ---------------------------------------------------------------------------

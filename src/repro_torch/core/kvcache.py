@@ -17,16 +17,23 @@ Meta words are int32 tensors holding the uint32 bits (see
 :mod:`repro_torch.core.hif4`). Grouping is per token, so appending one token
 re-quantizes nothing and bulk packing equals token-at-a-time appends.
 
-Unlike the reference's pure functions, :func:`append_token` writes the new
-token's bytes into the cache tensors IN PLACE (and returns the same dict):
-the decode loop then never copies the cache. The page pool comes with the
-paged kernel.
+Unlike the reference's pure functions, :func:`append_token`,
+:func:`append_token_paged`, :func:`scatter_pages` and :func:`copy_page`
+write into the cache or pool tensors IN PLACE (and return the same dict):
+the decode loop and the scheduler then never copy the cache or the pool.
+
+The paged pool (docs/FORMATS.md "Paged KV-cache pool") keeps the
+kernel-tile layout with a leading page axis, leaves (L, NP, F, P), page 0
+the reserved scratch page; :class:`PagePool` is its host-side bookkeeping.
+The guard's pool helpers (``scrub_pages``, ``page_checksums``,
+``page_meta_nan_counts``) come with the guard.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Union
+from collections import OrderedDict
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -186,14 +193,17 @@ def append_token(pcache: dict, kv_new: torch.Tensor,
     """Quantize kv_new (B, 1, Hkv, Dh) and write it at sequence slot ``pos``,
     in place, in the cache's own layout.
 
-    ``pos`` is a scalar (whole batch in lockstep) or (B,) per-slot offsets.
-    Cache leaves are (B, S, ...) artifact or (B, ..., S) kernel-tile; only
-    the G + tail bytes of the one token are written.
+    ``pos`` is a scalar (whole batch in lockstep) or (B,) per-slot offsets,
+    clamped to S - 1. Cache leaves are (B, S, ...) artifact or (B, ..., S)
+    kernel-tile; only the G + tail bytes of the one token are written.
     """
     b = kv_new.shape[0]
     new = quantize_kv(kv_new)
     dev = pcache["meta"].device
-    posv = slot_positions(pos, b, dev)
+    # positions past the capacity clamp to its last slot, as the reference's
+    # dynamic_update_slice does (retired slots and over-emission in a
+    # scheduler's last chunk write there; their tokens are discarded)
+    posv = torch.clamp(slot_positions(pos, b, dev), max=seq_capacity(pcache) - 1)
     rows = torch.arange(b, device=dev)
     kernel = is_kernel_layout(pcache)
     if kernel:
@@ -205,6 +215,320 @@ def append_token(pcache: dict, kv_new: torch.Tensor,
         else:
             full[rows, posv] = one[:, 0]
     return pcache
+
+
+# ---------------------------------------------------------------------------
+# Paged pool: device-side helpers
+# ---------------------------------------------------------------------------
+
+DEFAULT_PAGE_TOKENS = 64
+
+
+def pages_for_tokens(n_tokens: int, page_tokens: int) -> int:
+    """Pages needed to hold ``n_tokens`` token columns."""
+    return -(-n_tokens // page_tokens)
+
+
+def page_nbytes(n_kv_heads: int, d_head: int, page_tokens: int,
+                n_layers: int) -> int:
+    """Resident bytes of ONE pool page (K + V, all layers)."""
+    return n_layers * page_tokens * kv_bytes_per_token(n_kv_heads, d_head, "hif4")
+
+
+def init_page_pool(n_layers: int, n_kv_heads: int, d_head: int, n_pages: int,
+                   page_tokens: int, *, device=None) -> dict:
+    """Zero-initialized page pool {"k","v"} of packed kernel-tile leaves with
+    a leading page axis: codes (L, NP, G*32, P) uint8, meta (L, NP, G, P)
+    int32 (uint32 bits), tail (L, NP, T, P) bf16. Page 0 is the scratch page
+    (:class:`PagePool` never hands it out); zero pages decode to zeros."""
+    g, t = split_features(n_kv_heads, d_head)
+    shape = (n_layers, n_pages)
+
+    def leaves():
+        return {
+            "codes": torch.zeros(shape + (g * 32, page_tokens), dtype=torch.uint8,
+                                 device=device),
+            "meta": torch.zeros(shape + (g, page_tokens), dtype=torch.int32,
+                                device=device),
+            "tail": torch.zeros(shape + (t, page_tokens), dtype=torch.bfloat16,
+                                device=device),
+        }
+
+    return {"k": leaves(), "v": leaves()}
+
+
+def pool_page_tokens(pool_t: dict) -> int:
+    """Tokens per page P of pool leaves (any leading axes, tokens last)."""
+    return pool_t["meta"].shape[-1]
+
+
+def pool_n_pages(pool_t: dict) -> int:
+    """Total pages in a (L, NP, ..., P) pool tensor."""
+    return pool_t["meta"].shape[1]
+
+
+def split_pages(pk: dict, page_tokens: int) -> dict:
+    """A single-sequence packed cache (L, 1, F, S) -> pages (L, n, F, P),
+    the token axis zero-padded to a page multiple (inert under the length
+    mask). Page j holds exactly token columns [j*P, (j+1)*P)."""
+    pk = to_kernel_layout(pk)
+
+    def cut(a):
+        l, b, f, s = a.shape
+        if b != 1:
+            raise ValueError("split_pages takes a single-sequence (B=1) cache")
+        n = pages_for_tokens(s, page_tokens)
+        a = F.pad(a[:, 0], (0, n * page_tokens - s))
+        return a.reshape(l, f, n, page_tokens).movedim(2, 1)
+
+    return {key: cut(pk[key]) for key in ("codes", "meta", "tail")}
+
+
+def gather_pages(pool_t: dict, page_ids: torch.Tensor) -> dict:
+    """Pool leaves (L, NP, F, P) -> a COPY of the selected pages (L, n, F, P)."""
+    ids = page_ids.to(device=pool_t["meta"].device, dtype=torch.long)
+    return {key: a.index_select(1, ids) for key, a in pool_t.items()}
+
+
+def scatter_pages(pool_t: dict, pages: dict, page_ids: torch.Tensor) -> dict:
+    """Write page blocks (L, n, F, P) into the pool at ``page_ids``, in place."""
+    ids = page_ids.to(device=pool_t["meta"].device, dtype=torch.long)
+    for key in ("codes", "meta", "tail"):
+        full = pool_t[key]
+        full.index_copy_(1, ids, pages[key].to(device=full.device, dtype=full.dtype))
+    return pool_t
+
+
+def copy_page(pool_t: dict, src: int, dst: int) -> dict:
+    """Duplicate one page's bytes, all layers, in place (the copy-on-write
+    primitive)."""
+    for a in pool_t.values():
+        a[:, dst] = a[:, src]
+    return pool_t
+
+
+def append_token_paged(pool_t: dict, kv_new: torch.Tensor, pos: torch.Tensor,
+                       pages: torch.Tensor) -> dict:
+    """Quantize kv_new (B, 1, Hkv, Dh) and write one token column through
+    the page table, in place.
+
+    ``pool_t`` is the PER-LAYER pool view (NP, F, P); ``pages`` (B,
+    max_pages) maps each slot's logical page index to a pool page id;
+    ``pos`` (B,) is the slot's token count. The write lands at
+    (pages[b, pos_b // P], :, pos_b % P). Logical indices beyond the table
+    clamp to its last entry. A retired slot's table row is all zeros, so its
+    (masked, never read) writes land in the scratch page 0, where several
+    may collide; the scheduler gives every ACTIVE slot a page it owns
+    alone before each chunk, so live writes never collide.
+    """
+    p = pool_page_tokens(pool_t)
+    maxp = pages.shape[1]
+    new = to_kernel_layout(quantize_kv(kv_new))          # (B, F, 1) leaves
+    dev = pool_t["meta"].device
+    pos = pos.to(device=dev, dtype=torch.long)
+    idx = torch.clamp(pos // p, max=maxp - 1)
+    pids = torch.gather(pages.to(device=dev, dtype=torch.long), 1, idx[:, None])[:, 0]
+    offs = pos % p
+    for key in ("codes", "meta", "tail"):
+        full = pool_t[key]
+        full[pids, :, offs] = new[key][..., 0].to(full.dtype)
+    return pool_t
+
+
+# ---------------------------------------------------------------------------
+# Paged pool: host-side allocator / sharing metadata
+# ---------------------------------------------------------------------------
+
+
+class PagePool:
+    """Host-side bookkeeping for the fixed-size device page pool.
+
+    Tracks, per pool page id:
+
+    * a free list and per-page refcounts (``alloc`` / ``retain`` /
+      ``release``);
+    * ``owner``: the one holder allowed to append IN PLACE (any other
+      holder of a page with refcount > 1 copies it first);
+    * the FULL-page token-hash index (``register_full`` / ``lookup_full``):
+      key = the cumulative token tuple through the end of the page, so equal
+      keys imply equal page bytes (per-token grouping);
+    * the partial-tail registry (``register_partial`` / ``lookup_partial``):
+      live, still-appendable tail pages keyed by their cumulative prefix and
+      current contents, shareable by a prompt whose tail is a prefix of them
+      (copy-on-write at its first divergent append);
+    * the LRU cache of retired hashed pages (``cached``): a released full
+      page parks here instead of freeing, is revived by a later prefix hit,
+      and is evicted least-recently-used when ``alloc`` runs dry.
+
+    Page id 0 is the scratch page retired decode slots write into; it is
+    never handed out.
+    """
+
+    def __init__(self, n_pages: int, page_tokens: int):
+        if n_pages < 2:
+            raise ValueError("pool needs the scratch page + 1 usable page")
+        self.n_pages = n_pages
+        self.page_tokens = page_tokens
+        self.free: list[int] = list(range(n_pages - 1, 0, -1))
+        self.ref: dict[int, int] = {}
+        self.owner: dict[int, object] = {}
+        self.full_hash: dict[tuple, int] = {}
+        self.key_of: dict[int, tuple] = {}
+        self.partials: dict[int, dict] = {}      # pid -> {"key", "toks"}
+        self.cached: "OrderedDict[int, None]" = OrderedDict()
+        self.evictions = 0
+        self.shared_hits = 0
+
+    # -- capacity -----------------------------------------------------------
+
+    @property
+    def usable_pages(self) -> int:
+        return self.n_pages - 1                  # minus the scratch page
+
+    def available(self) -> int:
+        """Pages an alloc() could return right now (free + evictable)."""
+        return len(self.free) + len(self.cached)
+
+    def live_pages(self) -> int:
+        return len(self.ref)
+
+    # -- alloc / refcount ---------------------------------------------------
+
+    def alloc(self, owner=None) -> Optional[int]:
+        """Take a page: free list first, else evict the LRU cached page."""
+        if self.free:
+            pid = self.free.pop()
+        elif self.cached:
+            pid, _ = self.cached.popitem(last=False)
+            key = self.key_of.pop(pid, None)
+            if key is not None:
+                self.full_hash.pop(key, None)
+            self.evictions += 1
+        else:
+            return None
+        self.ref[pid] = 1
+        self.partials.pop(pid, None)
+        if owner is not None:
+            self.owner[pid] = owner
+        return pid
+
+    def retain(self, pid: int):
+        """Add a holder; revives a page parked in the LRU cache."""
+        if pid in self.cached:
+            del self.cached[pid]
+            self.ref[pid] = 1
+        else:
+            self.ref[pid] += 1
+
+    def release(self, pid: int):
+        """Drop a holder. A hashed full page with no holders parks in the
+        LRU cache (still shareable, evictable); anything else frees."""
+        self.ref[pid] -= 1
+        if self.ref[pid] > 0:
+            return
+        del self.ref[pid]
+        self.owner.pop(pid, None)
+        self.partials.pop(pid, None)
+        if pid in self.key_of:
+            self.cached[pid] = None
+        else:
+            self.free.append(pid)
+
+    # -- sharing indexes ----------------------------------------------------
+
+    def register_full(self, pid: int, key: tuple):
+        """Index an immutable full page by its cumulative token key (first
+        writer wins; duplicates stay unshared)."""
+        self.partials.pop(pid, None)
+        if key in self.full_hash or pid in self.key_of:
+            return
+        self.full_hash[key] = pid
+        self.key_of[pid] = key
+
+    def lookup_full(self, key: tuple) -> Optional[int]:
+        return self.full_hash.get(key)
+
+    def register_partial(self, pid: int, prefix_key: tuple, toks: list):
+        """(Re)index a live tail page: ``prefix_key`` is the cumulative
+        token tuple before the page, ``toks`` its current contents."""
+        if pid not in self.key_of:
+            self.partials[pid] = {"key": prefix_key, "toks": list(toks)}
+
+    def lookup_partial(self, prefix_key: tuple, seg: list) -> Optional[int]:
+        """A live page whose prefix matches and whose contents start with
+        ``seg`` (the new prompt's tail), shareable with COW on append."""
+        for pid, ent in self.partials.items():
+            if (ent["key"] == prefix_key and len(seg) <= len(ent["toks"])
+                    and ent["toks"][: len(seg)] == list(seg)):
+                return pid
+        return None
+
+    # -- invariants ---------------------------------------------------------
+
+    def audit(self, holders: Optional[dict] = None) -> dict:
+        """Check every cross-structure invariant and raise AssertionError
+        naming ALL violations; return occupancy counters on success.
+
+        The free list, the refcounted live set and the LRU cache partition
+        pages 1..n_pages-1 exactly; refcounts are positive; owners and
+        partial entries exist only on live pages; cached pages are
+        hash-indexed; the full-page hash is a bijection onto live-or-cached
+        pages, disjoint from the partial registry. ``holders`` (holder ->
+        page ids it retains) must then count exactly the refcounts.
+        """
+        errs = []
+        free, live, cached = set(self.free), set(self.ref), set(self.cached)
+        if len(free) != len(self.free):
+            errs.append(f"free list has duplicates: {sorted(self.free)}")
+        for name, a, b in (("free/live", free, live),
+                           ("free/cached", free, cached),
+                           ("live/cached", live, cached)):
+            both = a & b
+            if both:
+                errs.append(f"pages tracked twice ({name}): {sorted(both)}")
+        expected = set(range(1, self.n_pages))
+        tracked = free | live | cached
+        leaked = expected - tracked
+        if leaked:
+            errs.append(f"leaked pages (in no structure): {sorted(leaked)}")
+        bogus = tracked - expected
+        if bogus:
+            errs.append(f"out-of-range or scratch page ids tracked: "
+                        f"{sorted(bogus)}")
+        for pid, n in self.ref.items():
+            if n <= 0:
+                errs.append(f"page {pid}: non-positive refcount {n}")
+        for pid in self.owner:
+            if pid not in self.ref:
+                errs.append(f"page {pid}: owned but not live")
+        for pid in self.partials:
+            if pid not in self.ref:
+                errs.append(f"page {pid}: in the partial registry but not live")
+            if pid in self.key_of:
+                errs.append(f"page {pid}: both partial and full-hashed")
+        for pid in cached:
+            if pid not in self.key_of:
+                errs.append(f"page {pid}: cached without a full-page hash "
+                            "(unshareable — should have freed)")
+        if len(self.full_hash) != len(self.key_of):
+            errs.append(f"full_hash ({len(self.full_hash)}) and key_of "
+                        f"({len(self.key_of)}) disagree on size")
+        for pid, key in self.key_of.items():
+            if self.full_hash.get(key) != pid:
+                errs.append(f"page {pid}: key_of/full_hash mismatch")
+            if pid not in self.ref and pid not in self.cached:
+                errs.append(f"page {pid}: hash-indexed but neither live nor cached")
+        if holders is not None:
+            counts: dict[int, int] = {}
+            for ids in holders.values():
+                for pid in ids:
+                    counts[pid] = counts.get(pid, 0) + 1
+            if counts != dict(self.ref):
+                errs.append(f"refcounts {dict(sorted(self.ref.items()))} != "
+                            f"holder counts {dict(sorted(counts.items()))}")
+        assert not errs, "PagePool.audit failed:\n  - " + "\n  - ".join(errs)
+        return {"free": len(free), "live": len(live), "cached": len(cached),
+                "hashed": len(self.key_of), "partials": len(self.partials)}
 
 
 # ---------------------------------------------------------------------------

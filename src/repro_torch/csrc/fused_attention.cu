@@ -1,16 +1,29 @@
-// fused_decode_attention: Sq=1 flash decode straight off the HiF4 KV cache.
+// fused_decode_attention and fused_paged_decode_attention: Sq=1 flash decode
+// straight off the HiF4 KV cache, contiguous or paged.
 //
-// Replaces the TPU Pallas kernel
-// src/repro/kernels/fused_attention.py::fused_decode_attention (body
-// _fused_decode_kernel). q (B, H, D) bf16; K and V each codes (B, F/2, S)
-// uint8 + meta (B, G, S) uint32 in the kernel-tile layout (F = Hkv*D, tokens
-// innermost, no bf16 staging tail); length (B,) int32 -> (B, H, D) bf16.
+// Replaces the TPU Pallas kernels of src/repro/kernels/fused_attention.py:
+//   fused_decode_attention (body _fused_decode_kernel): q (B, H, D) bf16; K
+//     and V each codes (B, F/2, S) uint8 + meta (B, G, S) uint32 in the
+//     kernel-tile layout (F = Hkv*D, tokens innermost, no bf16 staging
+//     tail); length (B,) int32 -> (B, H, D) bf16;
+//   fused_paged_decode_attention (body _fused_paged_kernel): the same q and
+//     length; per-layer pool leaves codes (NP, F/2, P) + meta (NP, G, P);
+//     pages (B, max_pages) int32, tile k of slot b is pool page pages[b, k].
+//
+// Both kernels run ONE CTA body (decode_body), templated over its tile
+// loader: the contiguous loader addresses token columns ki*ck.. of the
+// slot's cache, the paged loader reads the page id from the table in device
+// memory and addresses that page's columns (ck = P). Same ops in the same
+// order, so paged at page size P is bitwise equal to contiguous at
+// block_kv = P. Trailing table entries (0, the scratch page) are walked like
+// any tile: fully masked, they are exact no-ops (corr = 1, e = 0,
+// acc * (l/l) = acc), which keeps the op order the reference's.
 //
 // What bounds it on the H100: the bytes of the packed cache (4.5 bits/value,
 // read once per step); the flops per byte are tiny.
 //
 // Design: one CTA per (slot, block of hb = lcm(D, 64)/D KV heads, so a head
-// block holds whole 64-groups). The KV tiles of select_kv_block are walked in
+// block holds whole 64-groups). The KV tiles (or pages) are walked in
 // a loop inside the CTA, so the softmax state (m, l) and the normalized
 // accumulator live in shared memory across tiles instead of in scratch
 // carried between grid steps. Per tile, K and V are dequantized from codes +
@@ -57,9 +70,40 @@ __device__ float block_reduce(float v, bool is_max, float* red) {
 }
 
 struct Geometry {
-  int hkv, rep, d, s, ck, hb;
+  int hkv, rep, d, ck, hb;
   __host__ __device__ int fb() const { return hb * d; }      // features per head block
   __host__ __device__ int rows() const { return hb * rep; }  // query rows per head block
+};
+
+// Where tile ki of (slot b, head block hblk) lives: code row r of the tile,
+// token t, is codes[code + r*stride + t]; its meta word is
+// meta[meta + (r/32)*stride + t].
+struct TileAddr {
+  size_t code, meta;
+  int stride;
+};
+
+// contiguous cache (B, F/2, S): tile ki is token columns [ki*ck, (ki+1)*ck)
+struct ContiguousTiles {
+  int s;
+  __device__ TileAddr operator()(int b, int hblk, int ki, const Geometry& g) const {
+    const int F = g.hkv * g.d, G = F / 64;
+    const size_t t0 = static_cast<size_t>(ki) * g.ck;
+    return {(static_cast<size_t>(b) * (F / 2) + hblk * (g.fb() / 2)) * s + t0,
+            (static_cast<size_t>(b) * G + hblk * (g.fb() / 64)) * s + t0, s};
+  }
+};
+
+// page pool (NP, F/2, P): tile ki is pool page pages[b*max_pages + ki], ck = P
+struct PagedTiles {
+  const int* __restrict__ pages;
+  int max_pages;
+  __device__ TileAddr operator()(int b, int hblk, int ki, const Geometry& g) const {
+    const int F = g.hkv * g.d, G = F / 64, P = g.ck;
+    const size_t pid = static_cast<size_t>(pages[static_cast<size_t>(b) * max_pages + ki]);
+    return {(pid * (F / 2) + hblk * (g.fb() / 2)) * P,
+            (pid * G + hblk * (g.fb() / 64)) * P, P};
+  }
 };
 
 __host__ __device__ inline size_t smem_bytes(int rows, int d, int fb, int ck) {
@@ -71,22 +115,21 @@ __host__ __device__ inline size_t smem_bytes(int rows, int d, int fb, int ck) {
                                   static_cast<size_t>(ck) * (fb + 2) /*V*/);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    fused_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                                  const uint8_t* __restrict__ kc,
-                                  const uint32_t* __restrict__ km,
-                                  const uint8_t* __restrict__ vc,
-                                  const uint32_t* __restrict__ vm,
-                                  const int* __restrict__ length,
-                                  __nv_bfloat16* __restrict__ out, Geometry geo,
-                                  float sqrt_d) {
+template <class Tiles>
+__device__ void decode_body(const __nv_bfloat16* __restrict__ q,
+                            const uint8_t* __restrict__ kc,
+                            const uint32_t* __restrict__ km,
+                            const uint8_t* __restrict__ vc,
+                            const uint32_t* __restrict__ vm,
+                            const int* __restrict__ length,
+                            __nv_bfloat16* __restrict__ out, const Geometry& geo,
+                            float sqrt_d, int n_tiles, const Tiles& tiles) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int hblk = blockIdx.x, b = blockIdx.y;
-  const int D = geo.d, rep = geo.rep, S = geo.s, ck = geo.ck;
+  const int D = geo.d, rep = geo.rep, ck = geo.ck;
   const int fb = geo.fb(), rows = geo.rows(), rd = rows * D;
   const int parts = rd >= kThreads ? 1 : kThreads / rd;
-  const int F = geo.hkv * D, G = F / 64, gb = fb / 64;
   const int vstride = fb + 2;  // odd word count per V row
 
   float* s_q = smem;                       // [rows][D]
@@ -113,16 +156,14 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  const size_t code_base = (static_cast<size_t>(b) * (F / 2) + hblk * (fb / 2)) * S;
-  const size_t meta_base = (static_cast<size_t>(b) * G + hblk * gb) * S;
-  const int n_tiles = S / ck;
   for (int ki = 0; ki < n_tiles; ++ki) {
     const int t0 = ki * ck;
+    const TileAddr at = tiles(b, hblk, ki, geo);
     // dequantize the K and V tiles into shared memory
     for (int i = tid; i < (fb / 2) * ck; i += kThreads) {
       const int r = i / ck, t = i % ck;  // code row r holds features 2r, 2r+1
-      const size_t ci = code_base + static_cast<size_t>(r) * S + t0 + t;
-      const size_t mi = meta_base + static_cast<size_t>(r / 32) * S + t0 + t;
+      const size_t ci = at.code + static_cast<size_t>(r) * at.stride + t;
+      const size_t mi = at.meta + static_cast<size_t>(r / 32) * at.stride + t;
       const int e = 2 * (r % 32);        // element index inside the 64-group
       const uint32_t kw = km[mi], vw = vm[mi];
       const uint32_t kb = kc[ci], vb = vc[ci];
@@ -205,6 +246,45 @@ __global__ void __launch_bounds__(kThreads)
     out[q_base + i] = __float2bfloat16_rn(s_acc[i]);
 }
 
+__global__ void __launch_bounds__(kThreads)
+    fused_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const uint8_t* __restrict__ kc,
+                                  const uint32_t* __restrict__ km,
+                                  const uint8_t* __restrict__ vc,
+                                  const uint32_t* __restrict__ vm,
+                                  const int* __restrict__ length,
+                                  __nv_bfloat16* __restrict__ out, Geometry geo,
+                                  float sqrt_d, int s) {
+  decode_body(q, kc, km, vc, vm, length, out, geo, sqrt_d, s / geo.ck,
+              ContiguousTiles{s});
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_paged_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                                        const uint8_t* __restrict__ kc,
+                                        const uint32_t* __restrict__ km,
+                                        const uint8_t* __restrict__ vc,
+                                        const uint32_t* __restrict__ vm,
+                                        const int* __restrict__ pages,
+                                        const int* __restrict__ length,
+                                        __nv_bfloat16* __restrict__ out,
+                                        Geometry geo, float sqrt_d,
+                                        int max_pages) {
+  decode_body(q, kc, km, vc, vm, length, out, geo, sqrt_d, max_pages,
+              PagedTiles{pages, max_pages});
+}
+
+template <class Kernel, class... Args>
+int launch(Kernel kernel, const Geometry& geo, int B, void* stream, Args... args) {
+  const size_t smem = smem_bytes(geo.rows(), geo.d, geo.fb(), geo.ck);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(geo.hkv / geo.hb, B);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" long long fused_decode_attention_smem(int rows, int d, int fb,
@@ -218,19 +298,26 @@ extern "C" int fused_decode_attention(const void* q, const void* kc,
                                       void* out, int B, int hkv, int rep,
                                       int d, int s, int ck, int hb,
                                       float sqrt_d, void* stream) {
-  if (B <= 0) return 0;
-  const Geometry geo{hkv, rep, d, s, ck, hb};
-  const size_t smem = smem_bytes(geo.rows(), d, geo.fb(), ck);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_decode_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(hkv / hb, B);
-  fused_decode_attention_kernel<<<grid, kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(kc),
-      static_cast<const uint32_t*>(km), static_cast<const uint8_t*>(vc),
-      static_cast<const uint32_t*>(vm), static_cast<const int*>(length),
-      static_cast<__nv_bfloat16*>(out), geo, sqrt_d);
-  return static_cast<int>(cudaGetLastError());
+  const Geometry geo{hkv, rep, d, ck, hb};
+  return launch(fused_decode_attention_kernel, geo, B, stream,
+                static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(kc),
+                static_cast<const uint32_t*>(km), static_cast<const uint8_t*>(vc),
+                static_cast<const uint32_t*>(vm), static_cast<const int*>(length),
+                static_cast<__nv_bfloat16*>(out), geo, sqrt_d, s);
+}
+
+extern "C" int fused_paged_decode_attention(const void* q, const void* kc,
+                                            const void* km, const void* vc,
+                                            const void* vm, const void* pages,
+                                            const void* length, void* out,
+                                            int B, int hkv, int rep, int d,
+                                            int page_tokens, int max_pages,
+                                            int hb, float sqrt_d, void* stream) {
+  const Geometry geo{hkv, rep, d, page_tokens, hb};
+  return launch(fused_paged_decode_attention_kernel, geo, B, stream,
+                static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(kc),
+                static_cast<const uint32_t*>(km), static_cast<const uint8_t*>(vc),
+                static_cast<const uint32_t*>(vm), static_cast<const int*>(pages),
+                static_cast<const int*>(length), static_cast<__nv_bfloat16*>(out),
+                geo, sqrt_d, max_pages);
 }

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: dict = {"hif4_quantize": 0, "fused_packed_matmul": 0,
-                  "fused_decode_attention": 0}
+                  "fused_decode_attention": 0, "fused_paged_decode_attention": 0}
 
 _LIBS: dict = {}
 

@@ -1,6 +1,7 @@
 """Where the decode time goes: time and profile the port's greedy decode step.
 
     python -m repro_torch.launch.profile --arch qwen1.5-0.5b   # on the card
+    python -m repro_torch.launch.profile --kv-pages 65         # paged pool
 
 Builds the serving artifact (policy paper-iv, impl packed, HiF4 KV) from
 random weights (``--seed``), prefills ``--batch`` x ``--prompt-len`` tokens,
@@ -9,7 +10,11 @@ in a device synchronize, and profiles two more with ``torch.profiler``
 (CPU + CUDA activities). Prints the step time, the device-busy share of the
 profiled window (sum of kernel time / wall time; overlapping kernels would
 overcount, the decode loop runs on one stream) and the top device kernels
-and host operators. CUDA only: a time taken on the CPU is not a device time.
+and host operators. With ``--kv-pages N`` the prefilled cache is cut into
+pages of 64 tokens and laid into a pool of N pages (one
+table row of distinct pages per slot, page 0 the scratch page), and the
+step decodes through the page table (kernel 4) as the paged scheduler's
+steps do. CUDA only: a time taken on the CPU is not a device time.
 """
 from __future__ import annotations
 
@@ -28,6 +33,27 @@ from repro_torch.runtime.serve_loop import (
     ServeConfig, build_decode_cache, prepare_params_for_serving, serving_ctx)
 
 
+def paged_cache(cfg, cache: dict, batch: int, n_pages: int, P: int, dev) -> dict:
+    """The contiguous decode cache (capacity a page multiple) cut into pages
+    of ``P`` tokens: slot b's pages are pool pages 1 + b*maxp .. (b+1)*maxp."""
+    a = cfg.attn
+    cap = kvcache.seq_capacity(cache["kv"]["k"])
+    maxp = cap // P
+    if n_pages < 1 + batch * maxp:
+        raise ValueError(f"--kv-pages {n_pages} < 1 + {batch} slots x {maxp} pages")
+    pool = kvcache.init_page_pool(cfg.n_layers, a.n_kv_heads, a.d_head, n_pages, P,
+                                  device=dev)
+    for name, leaves in cache["kv"].items():
+        for key, t in leaves.items():                      # (L, B, F, cap)
+            l, b, f, _ = t.shape
+            pages = t.reshape(l, b, f, maxp, P).permute(0, 1, 3, 2, 4)
+            pool[name][key][:, 1:1 + b * maxp] = pages.reshape(l, b * maxp, f, P)
+    table = torch.arange(1, 1 + batch * maxp, dtype=torch.int32,
+                         device=dev).reshape(batch, maxp)
+    pos = torch.full((batch,), int(cache["pos"]), dtype=torch.int32, device=dev)
+    return {"kv": pool, "pages": table, "pos": pos}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b")
@@ -36,6 +62,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--kv-pages", type=int, default=0,
+                    help="> 0: decode through a page pool of this many pages "
+                         f"of {kvcache.DEFAULT_PAGE_TOKENS} tokens")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     cfg = get_arch(args.arch)
@@ -48,9 +77,14 @@ def main(argv=None) -> int:
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=torch.Generator().manual_seed(args.seed + 1))
     budget = args.steps + 4
+    P = kvcache.DEFAULT_PAGE_TOKENS
+    cap = -(-(args.prompt_len + budget) // P) * P if args.kv_pages else None
     logits, cache = build_decode_cache(cfg, params, {"tokens": tokens.to(dev)},
-                                       sctx, ServeConfig(max_new_tokens=budget))
+                                       sctx, ServeConfig(max_new_tokens=budget,
+                                                         cache_capacity=cap))
     token = torch.argmax(logits, dim=-1).to(torch.int32)
+    if args.kv_pages:
+        cache = paged_cache(cfg, cache, args.batch, args.kv_pages, P, dev)
 
     def step(token, cache):
         logits, cache = lm.decode_step(params, token, cache, cfg, sctx)
@@ -63,8 +97,10 @@ def main(argv=None) -> int:
         token, cache = step(token, cache)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    kv = (f"paged pool {args.kv_pages} x {P} tokens" if args.kv_pages
+          else "contiguous cache")
     print(f"{torch.cuda.get_device_name(0)}: {cfg.name} batch {args.batch} "
-          f"prompt {args.prompt_len}: decode {step_ms:.2f} ms/step "
+          f"prompt {args.prompt_len}, {kv}: decode {step_ms:.2f} ms/step "
           f"({args.batch * 1e3 / step_ms:.1f} tokens/s)")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

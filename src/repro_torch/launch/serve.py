@@ -5,11 +5,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --reduced --device cpu --batch 2 --prompt-len 8 --new-tokens 4
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --reduced --device cpu --batch 2 --prompt-len 8 --new-tokens 4 \
+        --policy paper-iv --impl packed --kv-format hif4 \
+        --kv-pages 8 --kv-page-tokens 8                   # paged scheduler
+
 Prints the same residency, plan and dispatch lines as the JAX launcher
 (``repro.launch.serve``), then one line of tokens per request. Weights are
-random, made from ``--seed``; prompts too. ``--kv-pages``, ``--guard``,
-``--inject-fault`` and ``--journal-dir`` are not yet ported and exit with a
-nonzero status.
+random, made from ``--seed``; prompts too. ``--kv-pages N`` serves the
+requests through the paged HiF4 pool scheduler and prints its counters.
+``--guard``, ``--inject-fault``, ``--journal-dir`` and ``--resume`` are not
+yet ported and exit with a nonzero status.
 """
 from __future__ import annotations
 
@@ -32,9 +38,10 @@ from repro_torch.runtime.serve_loop import (
     prepare_params_for_serving,
     resolve_kv_format,
     serve,
+    serve_requests,
 )
 
-NOT_YET_PORTED_FLAGS = ("kv_pages", "guard", "inject_fault", "journal_dir")
+NOT_YET_PORTED_FLAGS = ("guard", "inject_fault", "journal_dir", "resume")
 
 
 def _leaf_at(tree, path: str):
@@ -102,17 +109,24 @@ def _print_kernel_dispatch(serving_params, ctx, args, device):
     print(line)
 
 
-def _print_attention_dispatch(cfg, ctx, capacity, device):
+def _print_attention_dispatch(cfg, ctx, capacity, device, page_tokens=0):
+    """The packed-KV decode attention line; with ``page_tokens`` it answers
+    for the page pool (per-layer leaves (NP, F, P), tile = page)."""
     a = cfg.attn
     g, t = kvcache.split_features(a.n_kv_heads, a.d_head)
-    probe = {"codes": torch.empty((1, g * 32, capacity), dtype=torch.uint8, device="meta"),
-             "meta": torch.empty((1, g, capacity), dtype=torch.int32, device="meta"),
-             "tail": torch.empty((1, t, capacity), dtype=torch.bfloat16, device="meta")}
+    cols = page_tokens or capacity
+    probe = {"codes": torch.empty((1, g * 32, cols), dtype=torch.uint8, device="meta"),
+             "meta": torch.empty((1, g, cols), dtype=torch.int32, device="meta"),
+             "tail": torch.empty((1, t, cols), dtype=torch.bfloat16, device="meta")}
     info = attention_dispatch_info(ctx.quant, probe, n_kv_heads=a.n_kv_heads,
-                                   d_head=a.d_head, device=device)
+                                   d_head=a.d_head, device=device,
+                                   paged=bool(page_tokens))
+    where = (f"{kvcache.pages_for_tokens(capacity, page_tokens)} pages of "
+             f"{page_tokens} tokens per slot" if page_tokens
+             else f"{capacity} slots")
     print(f"packed attention: {'fused' if info['fused'] else 'plain'} "
-          f"[{info['execution']}] kv tile {info['block_kv']} of "
-          f"{capacity} slots")
+          f"[{info['execution']}] {info['route']}, kv tile {info['block_kv']} "
+          f"of {where}")
 
 
 def parse_args(argv=None):
@@ -127,6 +141,11 @@ def parse_args(argv=None):
     ap.add_argument("--decode-chunk", type=int, default=0,
                     help="tokens between host checks of the eos mask")
     ap.add_argument("--kv-format", default="bf16", choices=list(kvcache.KV_FORMATS))
+    ap.add_argument("--kv-pages", type=int, default=0,
+                    help="> 0: paged KV pool with this many pages (page-granular "
+                         "admission + COW prefix sharing; needs --kv-format hif4)")
+    ap.add_argument("--kv-page-tokens", type=int, default=kvcache.DEFAULT_PAGE_TOKENS,
+                    help="tokens per KV pool page")
     ap.add_argument("--policy", default=None,
                     help="per-site quantization policy: paper-iv, "
                          "sensitive-fallback, uniform:<fmt> or a policy JSON")
@@ -174,25 +193,51 @@ def main(argv=None) -> int:
         print(f"impl={args.impl}: no packed weights resident "
               f"(fake-quant bf16 artifact)")
 
-    sc = ServeConfig(max_new_tokens=args.new_tokens, decode_chunk=args.decode_chunk)
+    sc = ServeConfig(max_new_tokens=args.new_tokens, decode_chunk=args.decode_chunk,
+                     kv_pages=args.kv_pages, kv_page_tokens=args.kv_page_tokens)
     a = cfg.attn
     kv_fmt = resolve_kv_format(cfg, ctx.quant, sc, verbose=True)
+    if args.kv_pages and kv_fmt != "hif4":
+        print("--kv-pages needs --kv-format hif4 (the page pool stores packed "
+              "HiF4 pages)", file=sys.stderr)
+        return 2
     cap = args.prompt_len + args.new_tokens
     per_tok = kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, kv_fmt) * cfg.n_layers
     bf16_tok = kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, "bf16") * cfg.n_layers
-    total = per_tok * cap * args.batch
-    print(f"kv cache residency [{kv_fmt}]: {per_tok} B/token "
-          f"(bf16: {bf16_tok}) x {cap} capacity x {args.batch} slots "
-          f"= {total / 2**20:.2f} MiB"
-          + (f"  [{bf16_tok / per_tok:.2f}x more slots per byte]"
-             if kv_fmt == "hif4" else ""))
+    if args.kv_pages:
+        pg = kvcache.page_nbytes(a.n_kv_heads, a.d_head, args.kv_page_tokens,
+                                 cfg.n_layers)
+        print(f"kv page pool [{kv_fmt}]: {args.kv_pages} pages x "
+              f"{args.kv_page_tokens} tokens ({pg} B/page) = "
+              f"{args.kv_pages * pg / 2**20:.2f} MiB (whole-slot equivalent: "
+              f"{per_tok * cap * args.batch / 2**20:.2f} MiB for "
+              f"{args.batch} slots x {cap} capacity)")
+    else:
+        total = per_tok * cap * args.batch
+        print(f"kv cache residency [{kv_fmt}]: {per_tok} B/token "
+              f"(bf16: {bf16_tok}) x {cap} capacity x {args.batch} slots "
+              f"= {total / 2**20:.2f} MiB"
+              + (f"  [{bf16_tok / per_tok:.2f}x more slots per byte]"
+                 if kv_fmt == "hif4" else ""))
     if kv_fmt == "hif4":
-        _print_attention_dispatch(cfg, ctx, cap, device)
+        _print_attention_dispatch(cfg, ctx, cap, device,
+                                  args.kv_page_tokens if args.kv_pages else 0)
 
     gen = torch.Generator().manual_seed(args.seed + 1)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen)
     sparams = serving_params if nvals else params
-    toks = serve(cfg, sparams, {"tokens": tokens}, ctx, sc, device=device)
+    if args.kv_pages:
+        stats: dict = {}
+        res = serve_requests(cfg, sparams, list(tokens), ctx, sc,
+                             slots=args.batch, stats=stats, device=device)
+        print(f"paged scheduler: max {stats['max_concurrent']} concurrent, "
+              f"{stats['shared_page_hits']} shared-page hits, "
+              f"{stats['preemptions']} preemptions, {stats['evictions']} LRU "
+              f"evictions, peak {stats['peak_live_pages']}/{args.kv_pages} "
+              f"pages live")
+        toks = torch.stack(res)
+    else:
+        toks = serve(cfg, sparams, {"tokens": tokens}, ctx, sc, device=device)
     for i in range(args.batch):
         print(f"request {i}: {toks[i].tolist()}")
     return 0

@@ -28,6 +28,11 @@ class ModelCtx:
     compute_dtype: torch.dtype = torch.bfloat16
     attn_q_chunk: int = 512
     attn_k_chunk: int = 1024
+    # Decode KV-tile override for the packed attention paths (None = the
+    # kernel's own select_kv_block). Bitwise parity between a paged run
+    # (tiles = pages) and a contiguous reference depends on the PARTITION
+    # of tokens into tiles, so solo references set this to the page size.
+    attn_kv_block: Optional[int] = None
 
     def __post_init__(self):
         # a plan-carrying ctx left at the default quant derives it from the

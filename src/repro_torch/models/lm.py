@@ -2,13 +2,16 @@
 
   abstract_params(cfg)                       -> PSpec tree (no allocation)
   init_params(cfg, seed, device=...)         -> materialized params
+  init_cache / init_paged_cache             -> zero decode caches (slot and
+                                                paged schedulers)
   prefill(params, batch, cfg, ctx)           -> (last-token logits, decode cache)
   decode_step(params, token, cache, cfg, ctx)-> (logits, cache)
 
 Params and caches are nested dicts of tensors in the reference's layout:
 stacked-layer leaves carry a leading L axis, and the forward walks the layers
 in a Python loop over per-layer views (the reference's ``lax.scan``). The
-decode cache is updated in place.
+decode cache is updated in place; a paged cache carries its page table
+(``pages``) beside the pool, and every layer reads it.
 """
 from __future__ import annotations
 
@@ -20,10 +23,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import kvcache
 from repro_torch.core.policy import STACKED_COLLECTIONS, QuantPlan, QuantPolicy
 from repro_torch.core.qlinear import PackedW, QuantConfig
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelCtx, dense
-from repro_torch.models.params import PSpec, init_from_specs, stack_specs
+from repro_torch.models.params import PSpec, init_from_specs, map_specs, stack_specs
 
 PORTED_FAMILIES = ("dense",)
 
@@ -68,6 +71,53 @@ def abstract_cache(cfg: ArchConfig, batch: int, seq: int,
             "pos": PSpec((), (), dtype=torch.int32, init="zeros")}
 
 
+def init_cache(cfg: ArchConfig, batch: int, seq: int, kv_format: str = "bf16",
+               *, device: DeviceLike = None) -> dict:
+    """Zero-filled decode cache of capacity ``seq`` with per-slot positions
+    (B,), for the slot scheduler (admission overwrites a slot's whole
+    capacity, so the fill never reaches a result)."""
+    dev = resolve_device(device)
+    kv = map_specs(lambda p: torch.zeros(p.shape, dtype=p.dtype, device=dev),
+                   abstract_cache(cfg, batch, seq, kv_format)["kv"])
+    return {"kv": kv, "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def init_paged_cache(cfg: ArchConfig, batch: int, n_pages: int,
+                     page_tokens: int, max_pages_per_slot: int, *,
+                     device: DeviceLike = None) -> dict:
+    """Zero-initialized PAGED decode cache for the page-pool scheduler:
+    ``kv`` the HiF4 page pool shared by all slots (leaves (L, NP, F, P)),
+    ``pages`` (B, max_pages_per_slot) int32 the per-slot page table
+    (all-zero rows point at the scratch page), ``pos`` (B,) the per-slot
+    token counts."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    a = cfg.attn
+    return {
+        "kv": kvcache.init_page_pool(cfg.n_layers, a.n_kv_heads, a.d_head,
+                                     n_pages, page_tokens, device=dev),
+        "pages": torch.zeros((batch, max_pages_per_slot), dtype=torch.int32,
+                             device=dev),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+    }
+
+
+def insert_slot_cache(cache: dict, slot_cache: dict, b: int) -> dict:
+    """Write a prefilled single-request cache (leaves (L, 1, ...), padded to
+    the same capacity) into batch slot ``b`` of a slot-scheduler cache
+    (leaves (L, B, ...)), in place; ``pos[b]`` becomes its position."""
+    def put(full, one):
+        if isinstance(full, dict):
+            for key in full:
+                put(full[key], one[key])
+        else:
+            full[:, b] = one[:, 0].to(full.dtype)
+
+    put(cache["kv"], slot_cache["kv"])
+    cache["pos"][b] = int(slot_cache["pos"])
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -104,10 +154,11 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
-def _tblock_apply(p, x, cfg, ctx, *, mode, cache=None, pos=None):
+def _tblock_apply(p, x, cfg, ctx, *, mode, cache=None, pos=None, pages=None):
     h = tf.norm_apply(p["norm1"], x, cfg)
     if mode == "decode":
-        a, new_cache = tf.attn_decode(p["attn"], h, cache, pos, cfg, ctx)
+        a, new_cache = tf.attn_decode(p["attn"], h, cache, pos, cfg, ctx,
+                                      pages=pages)
     else:
         a, new_cache = tf.attn_full(p["attn"], h, cfg, ctx,
                                     return_cache=(mode == "prefill"))
@@ -116,16 +167,18 @@ def _tblock_apply(p, x, cfg, ctx, *, mode, cache=None, pos=None):
     return x + tf.mlp_apply(p["mlp"], h2, cfg, ctx), new_cache
 
 
-def _transformer_forward(params, x, cfg, ctx, *, mode, caches=None, pos=None):
+def _transformer_forward(params, x, cfg, ctx, *, mode, caches=None, pos=None,
+                         pages=None):
     """x (B, S, d). prefill returns the stacked {"k","v"} caches
-    (L, B, S, Hkv, Dh); decode updates ``caches`` in place."""
+    (L, B, S, Hkv, Dh); decode updates ``caches`` in place (through the page
+    table ``pages``, the same for every layer, when they are a pool)."""
     bctx = ctx.scoped("blocks")
     kvs = []
     for i in range(cfg.n_layers):
         p_layer = layer_slice(params["blocks"], i)
         cache = layer_slice(caches, i) if mode == "decode" else None
         x, kv = _tblock_apply(p_layer, x, cfg, bctx, mode=mode, cache=cache,
-                              pos=pos)
+                              pos=pos, pages=pages)
         if mode == "prefill":
             kvs.append(kv)
     if mode == "prefill":
@@ -178,13 +231,18 @@ def quantize_kv_cache(cache: dict, cfg: ArchConfig) -> dict:
 
 def decode_step(params: dict, token: torch.Tensor, cache: dict,
                 cfg: ArchConfig, ctx: ModelCtx):
-    """token (B,) -> (logits (B, V), cache advanced by one token, in place)."""
+    """token (B,) -> (logits (B, V), cache advanced by one token, in place).
+    A paged cache (``pages`` present) keeps its page table."""
     pos = cache["pos"]
+    pages = cache.get("pages")
     x = embed_tokens(params, token[:, None], cfg, ctx)            # (B, 1, d)
     h, kv = _transformer_forward(params, x, cfg, ctx, mode="decode",
-                                 caches=cache["kv"], pos=pos)
+                                 caches=cache["kv"], pos=pos, pages=pages)
     logits = lm_logits(params, h[:, -1:], cfg, ctx)[:, 0]
-    return logits, {"kv": kv, "pos": pos + 1}
+    new_cache = {"kv": kv, "pos": pos + 1}
+    if pages is not None:
+        new_cache["pages"] = pages
+    return logits, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ Every linear layer runs through :func:`repro_torch.models.common.dense` with
 its per-site config (``ctx.site_quant("attn.wq")`` etc.). Attention modes:
   * full    — flash attention over the whole sequence; with
               ``return_cache`` it also returns the RoPE'd KV (prefill)
-  * decode  — one token against a KV cache, appending at ``pos``
+  * decode  — one token against a KV cache (contiguous, or the paged pool
+              through a page table), appending at ``pos``
 """
 from __future__ import annotations
 
@@ -101,20 +102,23 @@ def attn_full(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx, *,
 
 def _append_kv(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
     """Write new (B, 1, Hkv, Dh) into the bf16 cache (B, S, Hkv, Dh) at the
-    per-slot positions ``pos`` (B,), in place."""
+    per-slot positions ``pos`` (B,) clamped to S - 1 (as the reference's
+    dynamic_update_slice clamps), in place."""
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, pos] = new[:, 0].to(cache.dtype)
+    cache[rows, torch.clamp(pos, max=cache.shape[1] - 1)] = new[:, 0].to(cache.dtype)
     return cache
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
-                ctx: ModelCtx):
+                ctx: ModelCtx, *, pages=None):
     """One-token attention against, and appending to, a KV cache.
 
-    x (B, 1, d); cache {"k","v"} either bf16 (B, S, Hkv, Dh) or HiF4-packed
-    leaves (:mod:`repro_torch.core.kvcache`); ``pos`` the valid-slot count,
-    a scalar (lockstep batch) or (B,) per slot. The new token is written
-    into the cache tensors in place; the (same) cache dict is returned.
+    x (B, 1, d); cache {"k","v"} either bf16 (B, S, Hkv, Dh), HiF4-packed
+    leaves (:mod:`repro_torch.core.kvcache`) or, with ``pages`` (B,
+    max_pages), the per-layer view (NP, F, P) of the paged HiF4 pool;
+    ``pos`` the valid-slot count, a scalar (lockstep batch) or (B,) per
+    slot. The new token is written into the cache tensors in place (through
+    the page table for the pool); the (same) cache dict is returned.
     """
     B = x.shape[0]
     dev = x.device
@@ -123,19 +127,28 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
     q = apply_rope(q, posv[:, None], cfg.attn.rope_theta)
     k_new = apply_rope(k_new, posv[:, None], cfg.attn.rope_theta)
     length = (posv + 1).to(torch.int32)
-    if kvcache.is_packed_kv(cache["k"]):
+    if pages is not None:
+        # paged HiF4 pool: the one token's bytes land at (pages[b, pos//P],
+        # pos % P); the scheduler gives live slots pages they own alone
+        if not kvcache.is_packed_kv(cache["k"]):
+            raise ValueError("the page pool is HiF4-only")
+        kvcache.append_token_paged(cache["k"], k_new, posv, pages)
+        kvcache.append_token_paged(cache["v"], v_new, posv, pages)
+    elif kvcache.is_packed_kv(cache["k"]):
         # quantize the one new token into its own 64-groups + tail, write
         # only those bytes; attention streams the packed cache
         kvcache.append_token(cache["k"], k_new, posv)
         kvcache.append_token(cache["v"], v_new, posv)
-        o = qengine.attention_decode(
-            q[:, 0].contiguous(), cache["k"], cache["v"], length,
-            cfg.attn.n_kv_heads, cfg.attn.d_head,
-            qengine.EngineCtx(quant=ctx.quant))
     else:
         _append_kv(cache["k"], k_new, posv)
         _append_kv(cache["v"], v_new, posv)
         o = decode_attention(q[:, 0], cache["k"], cache["v"], length)
+    if kvcache.is_packed_kv(cache["k"]):
+        o = qengine.attention_decode(
+            q[:, 0].contiguous(), cache["k"], cache["v"], length,
+            cfg.attn.n_kv_heads, cfg.attn.d_head,
+            qengine.EngineCtx(quant=ctx.quant), pages=pages,
+            block_kv=ctx.attn_kv_block)
     y = _out_proj(p, o[:, None], cfg, ctx)                     # (B, 1, d)
     return y, cache
 

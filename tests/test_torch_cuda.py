@@ -1,4 +1,4 @@
-"""The three CUDA kernels of the port against their plain PyTorch versions,
+"""The four CUDA kernels of the port against their plain PyTorch versions,
 on a CUDA card. Every test here carries the ``cuda`` marker and skips
 without a card (the kernels have no interpret mode); the file imports no
 JAX, so it runs on the card's machine:
@@ -9,7 +9,11 @@ Tolerances: hif4_quantize bitwise; fused_packed_matmul within 1e-5 of the
 summed group magnitudes (only the f32 order of the sum over 64-groups may
 differ); fused_decode_attention rtol=2^-7, atol=1e-3 (f32 sum orders and
 ``expf`` differ from the plain version); an E6M2 0xFF meta word yields NaN
-in its slot only, as in the plain version.
+in its slot only, as in the plain version. fused_paged_decode_attention
+within the same tolerance of its plain version, BITWISE equal to
+fused_decode_attention at ``block_kv = P`` on the same bytes laid out
+contiguously (one CTA body, two tile loaders), and NaN metadata in a page
+reaches exactly the slots whose tables hold that page.
 """
 import numpy as np
 import pytest
@@ -81,3 +85,75 @@ def test_attention_vs_plain(cuda, hkv, rep, d, s):
     ref = TA.fused_decode_attention_plain(q, pk, pv, length, hkv, d)
     assert torch.equal(out.isnan(), ref.isnan()) and bool(out[2].isnan().any())
     assert not bool(out[[0, 1, 3, 4, 5]].isnan().any())
+
+
+def _paged_case(device, P, hkv=16, d=64, n_pages=24, seed=14):
+    """Per-layer pool leaves with real quantized tokens; slots 0 and 1 share
+    their first two pages, slot 2 ends in a partial page followed by
+    trailing scratch entries, slot 3 holds one token."""
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda *shape: (torch.randn(*shape, generator=g) * 0.5).to(torch.bfloat16)
+
+    def pool():
+        pk = kvcache.to_kernel_layout(kvcache.quantize_kv(mk(n_pages * P, hkv, d)))
+        return {k: a.reshape(a.shape[0], n_pages, P).transpose(0, 1).contiguous()
+                .to(device) for k, a in pk.items()}
+
+    pages = torch.tensor([[3, 7, 1, 9], [3, 7, 4, 10], [2, 11, 0, 0],
+                          [5, 0, 0, 0]], dtype=torch.int32, device=device)
+    length = torch.tensor([4 * P, 3 * P + 1, P + P // 2, 1], dtype=torch.int32,
+                          device=device)
+    return mk(4, hkv, d).to(device), pool(), pool(), pages, length
+
+
+def _contiguous(pool, pages):
+    out = {}
+    for key, a in pool.items():
+        gth = a[pages.long()]                               # (B, maxp, F, P)
+        b, maxp, f, p = gth.shape
+        out[key] = gth.permute(0, 2, 1, 3).reshape(b, f, maxp * p).contiguous()
+    return out
+
+
+@pytest.mark.parametrize("P", [16, 64])
+def test_paged_attention_vs_plain_and_contiguous(cuda, P):
+    q, kp, vp, pages, length = _paged_case(cuda, P)
+    build.reset_launches()
+    out = TA.fused_paged_decode_attention(q, kp, vp, pages, length,
+                                          n_kv_heads=16, d_head=64)
+    assert build.LAUNCHES["fused_paged_decode_attention"] == 1
+    ref = TA.fused_paged_decode_attention_plain(q, kp, vp, pages, length, 16, 64)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    cont = TA.fused_decode_attention(q, _contiguous(kp, pages),
+                                     _contiguous(vp, pages), length,
+                                     n_kv_heads=16, d_head=64, block_kv=P)
+    assert torch.equal(out.view(torch.int16), cont.view(torch.int16))
+    # trailing scratch entries are exact no-ops: cut them off, same bits
+    cut = TA.fused_paged_decode_attention(q[2:4], kp, vp,
+                                          pages[2:4, :2].contiguous(),
+                                          length[2:4], n_kv_heads=16, d_head=64)
+    assert torch.equal(out[2:4].view(torch.int16), cut.view(torch.int16))
+
+
+def test_paged_attention_nan_meta_reaches_only_its_holders(cuda):
+    q, kp, vp, pages, length = _paged_case(cuda, 16)
+    kp["meta"][7, 0, 2] |= -(1 << 24)                  # page 7: slots 0 and 1
+    out = TA.fused_paged_decode_attention(q, kp, vp, pages, length,
+                                          n_kv_heads=16, d_head=64)
+    ref = TA.fused_paged_decode_attention_plain(q, kp, vp, pages, length, 16, 64)
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert out.isnan().flatten(1).any(1).tolist() == [True, True, False, False]
+
+
+def test_paged_attention_refuses_empty_work(cuda):
+    """An empty page table or batch raises instead of counting a launch
+    that did not happen."""
+    q, kp, vp, pages, length = _paged_case(cuda, 16)
+    build.reset_launches()
+    with pytest.raises(ValueError):
+        TA.fused_paged_decode_attention(q, kp, vp, pages[:, :0].contiguous(),
+                                        length, n_kv_heads=16, d_head=64)
+    with pytest.raises(ValueError):
+        TA.fused_paged_decode_attention(q[:0], kp, vp, pages[:0], length[:0],
+                                        n_kv_heads=16, d_head=64)
+    assert build.LAUNCHES["fused_paged_decode_attention"] == 0

@@ -15,7 +15,7 @@ impl packed / HiF4 KV cache, with the reference's weights carried across by
   differently from its own eager run. (The two prefills are float-close,
   not bitwise: see ROADMAP §3.)
 * Greedy tokens from ``serve()`` equal the reference's.
-* The launcher runs on the CPU in a subprocess.
+* The launcher runs on the CPU in a subprocess, lockstep and paged.
 """
 import os
 import subprocess
@@ -219,5 +219,29 @@ def test_launcher_serves_on_cpu():
 
 def test_launcher_refuses_flags_not_yet_ported():
     out = _launch("--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
-                  "--kv-pages", "12")
+                  "--journal-dir", "journal")
     assert out.returncode != 0 and "not yet ported" in out.stderr
+
+
+def test_launcher_serves_paged_on_cpu():
+    """``--kv-pages`` serves the requests through the paged scheduler and
+    prints the pool residency and scheduler lines of the JAX launcher; the
+    tokens equal the lockstep serve's (tiles of a 16-token page partition a
+    capacity of 16 exactly like the single tile of the lockstep cache)."""
+    args = ("--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "8", "--new-tokens", "8",
+            "--policy", "paper-iv", "--impl", "packed", "--kv-format", "hif4")
+    out = _launch(*args, "--kv-pages", "4", "--kv-page-tokens", "16",
+                  "--decode-chunk", "3")
+    assert out.returncode == 0, out.stderr
+    text = out.stdout
+    assert "kv page pool [hif4]: 4 pages x 16 tokens (4608 B/page)" in text
+    assert "fused_paged_decode_attention, kv tile 16 of 1 pages" in text
+    assert ("paged scheduler: max 2 concurrent, 0 shared-page hits, "
+            "0 preemptions, 0 LRU evictions, peak 2/4 pages live") in text
+    lockstep = _launch(*args)
+    assert lockstep.returncode == 0, lockstep.stderr
+    req = [ln for ln in text.splitlines() if ln.startswith("request ")]
+    assert len(req) == 2
+    assert req == [ln for ln in lockstep.stdout.splitlines()
+                   if ln.startswith("request ")]
