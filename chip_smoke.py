@@ -6,25 +6,42 @@
 Phases (any failure ends the run with a nonzero exit):
 
 1. device  — a CUDA device, its name and power limit (nvidia-smi);
-2. build   — the CUDA kernels of src/repro_torch/csrc (three sources, four
+2. build   — the CUDA kernels of src/repro_torch/csrc (four sources, five
              kernels), built with nvcc, one process per source in parallel;
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes of the main path, with times (CUDA events) beside
+             the shapes of the main paths, with times (CUDA events) beside
              the least time the card could take (bound_ms) and a library
-             yardstick where PyTorch has one;
+             yardstick where PyTorch has one; kernel 1 also at the tied
+             embedding's shape, kernel 5 bitwise against kernel 2 on the
+             absorbed expansion of a packed weight;
 4. serve   — the main path: full-width qwen1.5-0.5b, policy paper-iv, impl
              packed, HiF4 KV cache, batch 8, prompt 480, 32 new tokens,
              random weights from --seed; the launch counters must show every
              kernel ran the expected number of times;
-5. e2e     — a 2-layer cut of the same width, one set of weights, served
-             on the card through the kernels, on the card through the plain
-             versions (prefill logits must be bitwise equal), and on the CPU
-             (at most 1% of the prefill logits outside rtol=0.05, atol=0.1:
-             PyTorch's own float ops differ between CPU and GPU in the last
-             bit, and HiF4 activation quantization amplifies those flips).
-             Greedy tokens must agree, or differ only where the reference's
-             top-2 logit gap is within that tolerance.
-6. paged   — the paged path at full width and depth: 12 requests sharing a
+5. pallas  — the same serve under impl pallas with a policy that quantizes
+             the tied LM head (paper-iv's rules without its lm_head
+             exclusion): per logits call kernel 1 on the activations and on
+             the embedding, then kernel 5; weights at 5x the init's scale,
+             so tokens vary; exact launch counts; the head at the last
+             decode step bitwise equal to its plain versions; then the same
+             weights under nvfp4-baseline (kernels 2 and 5 never run), the
+             four formats' qdq on the card bitwise equal to the CPU, and the
+             quantized matmul of kernels.ops within 20% of the f32 product
+             and closer than MXFP4;
+6. e2e     — a 2-layer cut of the same width, one set of weights, under
+             paper-iv and under the head policy, served on the card through
+             the kernels, on the card through the plain versions (prefill
+             logits must be bitwise equal), and on the CPU: under paper-iv
+             at most 1% of the prefill logits outside rtol=0.05, atol=0.1
+             (PyTorch's own float ops differ between CPU and GPU in the last
+             bit, and HiF4 activation quantization amplifies those flips);
+             under the head policy, whose HiF4 head amplifies them further,
+             at most 10%, printed beside the CPU's own share under a
+             reordered attention, and the head must be bitwise equal card
+             vs CPU on the card's final hidden state. Greedy tokens must
+             agree, or differ only where the reference's top-2 logit gap is
+             within that tolerance.
+7. paged   — the paged path at full width and depth: 12 requests sharing a
              256-token prefix through 8 slots and a 24-page HiF4 pool
              (P=64, 32 new tokens, decode chunk 8), which shows shared-prefix
              hits, a COW copy, LRU evictions and a preemption; every
@@ -57,6 +74,8 @@ BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 # distinct input copies a timing loop cycles through (> the 50 MB L2)
 L2_ROTATION = 24
+# qwen1.5-0.5b's tied embedding (vocab, d_model): the pallas LM head's weight
+EMBED_SHAPE = (151936, 1024)
 
 
 class PhaseError(RuntimeError):
@@ -146,21 +165,46 @@ def check_quantize(dev, records):
     print(f"  hif4_quantize decode (8, 1024) bf16: kernel_ms={ms:.5f} "
           f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} (bytes) "
           f"library_ms=n/a (no single PyTorch call)")
+    # the pallas LM head quantizes the whole tied embedding on every call
+    m, k = EMBED_SHAPE
+    dg = torch.Generator(device=dev).manual_seed(16)
+    embeds = [(torch.randn(m, k, generator=dg, device=dev) * 0.02).to(torch.bfloat16)
+              for _ in range(2)]                   # 2 x 311 MB > the 50 MB L2
+    ki, ks = hif4_quantize(embeds[0])
+    rows = slice(0, 8192)
+    pi, ps = absorbed_activation(embeds[0][rows])
+    torch.cuda.synchronize()
+    check(torch.equal(ki[rows], pi) and torch.equal(ks[rows].view(torch.int32),
+                                                    ps.view(torch.int32)),
+          "hif4_quantize on the embedding: rows 0-8191 differ from the plain version")
+    del ki, ks, pi, ps
+    e_ms = cuda_ms(hif4_quantize, [(e,) for e in embeds], iters=20)
+    e_plain_ms = cuda_ms(absorbed_activation, [(e,) for e in embeds], iters=3,
+                         warmup=1)
+    e_bytes = m * k * 2 + m * k + m * (k // 64) * 4
+    e_bound_ms = max(e_bytes / HBM_BYTES_PER_S, 16 * m * k / F32_FLOPS_PER_S) * 1e3
+    print(f"  hif4_quantize embedding ({m}, {k}) bf16: rows 0-8191 bitwise equal "
+          f"to the plain version; kernel_ms={e_ms:.5f} plain_ms={e_plain_ms:.5f} "
+          f"bound_ms={e_bound_ms:.6f} (bytes: {e_bytes} B)")
     records["hif4_quantize"] = {
         "name": "hif4_quantize", "route": "cuda",
         "source": "src/repro_torch/csrc/hif4_quant.cu",
         "replaces": "src/repro/kernels/hif4_quant.py:75",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-        "shape": "x (8, 1024) bf16"}
+        "shape": "x (8, 1024) bf16",
+        "embedding": {"shape": f"x ({m}, {k}) bf16", "ms": e_ms,
+                      "plain_ms": e_plain_ms, "bound_ms": e_bound_ms,
+                      "bound_by": "bytes"}}
 
 
 def check_matmul(dev, records):
     import torch
     from repro_torch.core import hif4
     from repro_torch.core.qlinear import PackedW
+    from repro_torch.kernels.bfp_matmul import bfp_matmul_quantized_plain
     from repro_torch.kernels.fused_matmul import (
-        _tile_group_dot, fused_packed_matmul, fused_packed_matmul_plain)
+        fused_packed_matmul, fused_packed_matmul_plain)
     from repro_torch.kernels.hif4_quant import absorbed_activation
 
     gen = torch.Generator().manual_seed(12)
@@ -174,7 +218,8 @@ def check_matmul(dev, records):
             ai, asc = absorbed_activation(x)
             y = fused_packed_matmul(ai, asc, codes, meta)
             ref = fused_packed_matmul_plain(ai, asc, codes, meta)
-            rowabs = _tile_group_dot(ai.abs(), asc.abs(), b_ints.abs(), b_sc.abs())
+            rowabs = bfp_matmul_quantized_plain(ai.abs(), asc.abs(), b_ints.abs(),
+                                                b_sc.abs())
             torch.cuda.synchronize()
             err = (y - ref).abs()
             worst = max(worst, float(err.max()))
@@ -210,6 +255,119 @@ def check_matmul(dev, records):
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
         "library": "torch.matmul bf16 dense (M,K)x(K,N), not the same function",
         "shape": "M=8 K=1024 N=2816"}
+
+
+def _lm_head_operands(m, k, n, gen, dev):
+    """Kernel 5's operands as the pallas LM head makes them: kernel 1 on the
+    activations (M, K) and on the weight stored (N, K), the weight's ints
+    and scales handed over as transposed views (K-contiguous columns)."""
+    import torch
+    from repro_torch.kernels.hif4_quant import hif4_quantize
+
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(n, k, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    ai, asc = hif4_quantize(x)
+    wi, wsc = hif4_quantize(w)
+    return ai, asc, wi.T, wsc.T, x, w
+
+
+def _group_matmul_bound_ms(m, k, n):
+    """Each int8 input and f32 scale read once, the (M, N) f32 output
+    written once; 2 M N K int8 operations."""
+    nbytes = (m * k + m * (k // 64) * 4 + k * n + (k // 64) * n * 4
+              + m * n * 4)
+    ops = 2 * m * n * k
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations"), nbytes
+
+
+def check_bfp_matmul(dev, records):
+    """Kernel 5 against its plain version (limit 1e-5 of the row's summed
+    group magnitudes; bitwise by design) at the LM head's decode shape, the
+    prefill shape and a ragged one; bitwise against kernel 2 on the absorbed
+    expansion of a packed weight; a NaN scale confined to its row and
+    column; then timed at the LM head's shape and the prefill shape."""
+    import torch
+    from repro_torch.core.engine import packed_to_absorbed
+    from repro_torch.core.qlinear import PackedW
+    from repro_torch.kernels.bfp_matmul import (
+        bfp_matmul_quantized, bfp_matmul_quantized_plain)
+    from repro_torch.kernels.fused_matmul import fused_packed_matmul
+    from repro_torch.kernels.hif4_quant import hif4_quantize
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    vocab, d = EMBED_SHAPE
+    worst = 0.0
+    for m, k, n, label in ((8, d, vocab, "LM head decode"),
+                           (3840, 1024, 2816, "prefill"),
+                           (37, 320, 1000, "ragged: M, N tails, K/64 = 5")):
+        ai, asc, bi, bsc, _, _ = _lm_head_operands(m, k, n, gen, dev)
+        y = bfp_matmul_quantized(ai, asc, bi, bsc)
+        ref = bfp_matmul_quantized_plain(ai, asc, bi, bsc)
+        rowabs = bfp_matmul_quantized_plain(ai.abs(), asc.abs(), bi.abs(), bsc.abs())
+        torch.cuda.synchronize()
+        err = (y - ref).abs()
+        worst = max(worst, float(err.max()))
+        check(bool((err <= 1e-5 * rowabs + 1e-30).all()),
+              f"bfp_matmul_quantized M={m} K={k} N={n}: max |d| "
+              f"{float(err.max())} beyond 1e-5 of the row abs sum")
+        print(f"  bfp_matmul_quantized {label} M={m} K={k} N={n}: max |d| "
+              f"{float(err.max()):.3e} (bitwise: "
+              f"{torch.equal(y.view(torch.int32), ref.view(torch.int32))})")
+    for m in (8, 3840):
+        w = (torch.randn(1024, 2816, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        pw = PackedW.from_dense(w).to_kernel_layout()
+        x = torch.randn(m, 1024, generator=gen, device=dev).to(torch.bfloat16)
+        ai, asc = hif4_quantize(x)
+        y5 = bfp_matmul_quantized(ai, asc, *packed_to_absorbed(pw))
+        y2 = fused_packed_matmul(ai, asc, pw.codes, pw.meta)
+        torch.cuda.synchronize()
+        check(torch.equal(y5.view(torch.int32), y2.view(torch.int32)),
+              f"bfp_matmul_quantized on packed_to_absorbed(pw), M={m}: not "
+              f"bitwise equal to fused_packed_matmul on pw")
+        print(f"  bfp_matmul_quantized on packed_to_absorbed(pw) M={m} K=1024 "
+              f"N=2816: bitwise equal to fused_packed_matmul on pw")
+    ai, asc, bi, bsc, _, _ = _lm_head_operands(8, 256, 200, gen, dev)
+    asc[3, 2] = float("nan")
+    bsc[1, 130] = float("nan")
+    y = bfp_matmul_quantized(ai, asc, bi, bsc)
+    want = torch.zeros_like(y, dtype=torch.bool)
+    want[3, :] = True
+    want[:, 130] = True
+    torch.cuda.synchronize()
+    check(torch.equal(y.isnan(), want), "bfp_matmul_quantized: a NaN scale "
+          "reached outputs outside its row and column")
+    print("  bfp_matmul_quantized: NaN a_scale -> its row only, NaN b_scale -> "
+          "its column only")
+
+    timed = {}
+    for m, k, n, copies in ((8, d, vocab, 3), (3840, 1024, 2816, 8)):
+        ops = [_lm_head_operands(m, k, n, gen, dev) for _ in range(copies)]
+        args = [o[:4] for o in ops]
+        ms = cuda_ms(bfp_matmul_quantized, args, iters=30)
+        plain_ms = cuda_ms(bfp_matmul_quantized_plain, args, iters=5, warmup=1)
+        library_ms = cuda_ms(torch.matmul, [(o[4], o[5].T) for o in ops], iters=30)
+        bound_ms, bound_by, nbytes = _group_matmul_bound_ms(m, k, n)
+        timed[m] = (ms, plain_ms, library_ms, bound_ms, bound_by)
+        print(f"  bfp_matmul_quantized M={m} K={k} N={n}: kernel_ms={ms:.5f} "
+              f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}: "
+              f"{nbytes} B) library_ms={library_ms:.5f} (torch.matmul bf16 "
+              f"dense, not the same function)")
+        del ops, args
+    ms, plain_ms, library_ms, bound_ms, bound_by = timed[8]
+    p_ms, p_plain_ms, p_library_ms, p_bound_ms, p_bound_by = timed[3840]
+    records["bfp_matmul_quantized"] = {
+        "name": "bfp_matmul_quantized", "route": "cuda",
+        "source": "src/repro_torch/csrc/bfp_matmul.cu",
+        "replaces": "src/repro/kernels/bfp_matmul.py:101",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "library": "torch.matmul bf16 dense (M,K)x(K,N), not the same function",
+        "shape": f"M=8 K={d} N={vocab} (the pallas LM head)",
+        "prefill": {"shape": "M=3840 K=1024 N=2816", "ms": p_ms,
+                    "plain_ms": p_plain_ms, "bound_ms": p_bound_ms,
+                    "bound_by": p_bound_by, "library_ms": p_library_ms}}
 
 
 def _packed_cache(b, s, hkv, d, gen, dev):
@@ -459,15 +617,23 @@ def check_paged_attention(dev, records):
 # ---------------------------------------------------------------------------
 
 
-def serving_setup(cfg):
+def serving_setup(cfg, policy: str = "paper-iv", impl: str = "packed"):
+    """A serving context with HiF4 KV: a preset under ``impl``, or ``head``,
+    the paper-iv rules without the lm_head exclusion under impl pallas,
+    built as the rule list a ``--policy`` JSON carries."""
     from repro_torch.core import kvcache
-    from repro_torch.core.policy import get_policy
+    from repro_torch.core.policy import QuantPolicy, QuantRule, get_policy
     from repro_torch.models import lm
     from repro_torch.models.common import ModelCtx
 
-    plan = lm.quant_plan(cfg, get_policy("paper-iv", impl="packed",
-                                         kv=kvcache.KV_HIF4))
-    return ModelCtx(plan=plan)
+    if policy == "head":
+        pol = QuantPolicy(rules=(QuantRule("*", fmt="hif4", impl="pallas"),
+                                 QuantRule("embed", fmt="none"),
+                                 QuantRule("*.router", fmt="none")),
+                          kv=kvcache.KV_HIF4, name="hif4-with-head")
+    else:
+        pol = get_policy(policy, impl=impl, kv=kvcache.KV_HIF4)
+    return ModelCtx(plan=lm.quant_plan(cfg, pol))
 
 
 def phase_serve(dev, seed, records):
@@ -520,7 +686,7 @@ def phase_serve(dev, seed, records):
     want = {"hif4_quantize": cfg.n_layers * sites * (1 + steps),
             "fused_packed_matmul": cfg.n_layers * sites * (1 + steps),
             "fused_decode_attention": cfg.n_layers * steps,
-            "fused_paged_decode_attention": 0}
+            "fused_paged_decode_attention": 0, "bfp_matmul_quantized": 0}
     print(f"  launches on the main path: {launches} (expected {want})")
     check(launches == want, f"launch counts {launches} != expected {want}")
     for name, n in launches.items():
@@ -529,34 +695,204 @@ def phase_serve(dev, seed, records):
     print(f"  request 0: {toks[0].tolist()}")
 
 
+def phase_pallas(dev, seed, records):
+    """The dense pallas route at full width and depth: the packed body
+    (kernels 1-3) and the LM head quantizing the tied embedding and the
+    activations per call (kernel 1 twice) into kernel 5; then the same
+    weights under nvfp4-baseline; the four formats' qdq on the card against
+    the CPU; the quantized matmul of kernels.ops against the f32 product."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import metrics
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve_loop import (
+        ServeConfig, prepare_params_for_serving, serve, serving_ctx)
+
+    cfg = get_arch("qwen1.5-0.5b")
+    batch, prompt, new = 8, 480, 32
+    ctx = serving_setup(cfg, "head")
+    head = ctx.plan.site("lm_head")
+    check((head.cfg.fmt, head.cfg.impl, head.packed) == ("hif4", "pallas", False)
+          and len(ctx.plan.packed_paths) == 7,
+          f"head policy plan: lm_head {head}, packed {ctx.plan.packed_paths}")
+    # the blocks and the embedding (so the tied head too) at 5x the init's
+    # scale, as in the paged phase: greedy tokens then change from step to
+    # step, so a wrong head shows in the tokens
+    params = lm.init_params(cfg, seed, device="cpu")
+    params = dict(params, blocks=_scaled(params["blocks"], 5.0),
+                  embed=params["embed"] * 5.0)
+    sparams = prepare_params_for_serving(params, cfg, ctx.plan, device=dev)
+    gen = torch.Generator().manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen)
+    serve(cfg, sparams, {"tokens": tokens[:, :64]}, ctx,
+          ServeConfig(max_new_tokens=2), device=dev)          # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    stats: dict = {}
+    with head_inputs() as seen:
+        toks = serve(cfg, sparams, {"tokens": tokens}, ctx,
+                     ServeConfig(max_new_tokens=new), device=dev, stats=stats)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    steps = stats["decode_steps"]
+    print(f"  lm_head: {head.cfg.fmt} {head.cfg.impl} dense (tied -> embed); "
+          f"prefill {stats['prefill_s'] * 1e3:.1f} ms for {batch} x {prompt}; "
+          f"decode {stats['decode_s'] * 1e3 / steps:.2f} ms/token step "
+          f"({batch * steps / stats['decode_s']:.1f} tokens/s over {steps} "
+          f"steps); {card_line()}")
+    check(tuple(toks.shape) == (batch, new), f"tokens shape {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token ids out of range")
+    calls = 1 + steps                         # LM-head calls: prefill + decode
+    sites = 7
+    want = {"hif4_quantize": cfg.n_layers * sites * calls + 2 * calls,
+            "fused_packed_matmul": cfg.n_layers * sites * calls,
+            "fused_decode_attention": cfg.n_layers * steps,
+            "fused_paged_decode_attention": 0,
+            "bfp_matmul_quantized": calls}
+    print(f"  launches in the pallas run: {launches} (expected {want})")
+    check(launches == want, f"launch counts {launches} != expected {want}")
+    records.setdefault("bfp_matmul_quantized", {})["launches"] = launches[
+        "bfp_matmul_quantized"]
+    print(f"  request 0: {toks[0].tolist()}")
+    _check_tokens_vary("pallas", toks)
+
+    # the head at the last decode step, on the hidden state it was given:
+    # kernels 1 and 5 against their plain versions on the card, bitwise, and
+    # the served token is the logits' argmax
+    sctx = serving_ctx(ctx)
+    x = seen[-1]
+    on_card = lm.lm_logits(sparams, x, cfg, sctx)[:, 0]
+    with plain_versions():
+        plain = lm.lm_logits(sparams, x, cfg, sctx)[:, 0]
+    same = torch.equal(on_card.view(torch.int32), plain.view(torch.int32))
+    picked = torch.equal(torch.argmax(on_card, dim=-1).cpu(), toks[:, -1].cpu())
+    print(f"  lm_head at decode step {len(seen) - 1}: kernels vs plain versions "
+          f"on the card bitwise {same}; finite {bool(on_card.isfinite().all())}; "
+          f"argmax == served token {picked}")
+    check(same and picked and bool(on_card.isfinite().all()),
+          "the LM head at the last decode step: kernels != plain versions, "
+          "non-finite logits, or the served token is not their argmax")
+
+    # the same weights under nvfp4-baseline: fake-quant NVFP4+PTS body, bf16
+    # head, HiF4 KV through kernel 3
+    base_ctx = serving_setup(cfg, "nvfp4-baseline", impl="pallas")
+    build.reset_launches()
+    stats = {}
+    toks = serve(cfg, params, {"tokens": tokens}, base_ctx,
+                 ServeConfig(max_new_tokens=8), device=dev, stats=stats)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    steps = stats["decode_steps"]
+    print(f"  nvfp4-baseline: decode {stats['decode_s'] * 1e3 / steps:.2f} "
+          f"ms/token step; launches {launches}; request 0: {toks[0].tolist()}")
+    _check_tokens_vary("nvfp4-baseline", toks)
+    check(launches["fused_packed_matmul"] == 0
+          and launches["bfp_matmul_quantized"] == 0
+          and launches["fused_decode_attention"] == cfg.n_layers * steps,
+          f"nvfp4-baseline launches {launches}: kernels 2 and 5 must not run, "
+          f"kernel 3 {cfg.n_layers} x {steps} times")
+    del params, sparams
+
+    # formats on the card: qdq bitwise equal to the CPU port's
+    g = torch.Generator().manual_seed(seed + 6)
+    w = torch.randn(1024, 1024, generator=g) * 0.01
+    mse = {}
+    for fmt in metrics.QDQ_FORMATS:
+        q = get_format(fmt).qdq
+        on_card, on_cpu = q(w.to(dev)).cpu(), q(w)
+        check(torch.equal(on_card.view(torch.int32), on_cpu.view(torch.int32)),
+              f"{fmt} qdq on the card differs from the CPU at "
+              f"{int((on_card != on_cpu).sum())} values")
+        mse[fmt] = metrics.qdq_error(w.to(dev), fmt)
+    print(f"  qdq of a 1024 x 1024 N(0, 0.01^2) matrix: hif4, nvfp4, nvfp4_pts, "
+          f"mxfp4 bitwise equal card vs CPU; MSE ratio to hif4 "
+          + ", ".join(f"{f} {mse[f] / mse['hif4']:.3f}" for f in mse)
+          + " (the paper's plateau 1 : 1.32 : 1.89 for hif4 : nvfp4 : mxfp4)")
+
+    # the user-facing quantized matmul (the reference's accuracy claims)
+    x = torch.randn(32, 512, generator=g).to(dev) * 0.5
+    wm = torch.randn(512, 32, generator=g).to(dev) * 0.05
+    exact = x @ wm
+    rel = float(torch.linalg.norm(ops.matmul(x, wm) - exact) / torch.linalg.norm(exact))
+    mx = get_format("mxfp4")
+    rel_mx = float(torch.linalg.norm(mx.qdq(x, axis=-1) @ mx.qdq(wm, axis=0) - exact)
+                   / torch.linalg.norm(exact))
+    print(f"  ops.matmul (32, 512) x (512, 32): relative error {rel:.4f} to the "
+          f"f32 product (MXFP4 qdq {rel_mx:.4f})")
+    check(rel < 0.2 and rel < rel_mx, f"ops.matmul relative error {rel} "
+          f"(must be < 0.2 and < MXFP4's {rel_mx})")
+
+
+def _check_tokens_vary(label, toks):
+    distinct = [len(set(r.tolist())) for r in toks]
+    print(f"  {label}: distinct tokens per request {distinct}")
+    check(min(distinct) > 1, f"{label}: a request repeats one token")
+
+
+@contextlib.contextmanager
+def head_inputs():
+    """Record the final hidden state each call of the LM head is given."""
+    from repro_torch.models import lm
+
+    seen, head = [], lm.lm_logits
+
+    def capture(p, x, c, mctx):
+        seen.append(x)
+        return head(p, x, c, mctx)
+
+    lm.lm_logits = capture
+    try:
+        yield seen
+    finally:
+        lm.lm_logits = head
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route the engine's three kernel entry points to their plain PyTorch
-    versions (for a run on the card that launches no kernel of the port)."""
+    """Route the engine's kernel entry points to their plain PyTorch versions
+    (for a run on the card that launches no kernel of the port)."""
     from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bfp_matmul import bfp_matmul_quantized_plain
     from repro_torch.kernels.fused_attention import fused_decode_attention_plain
     from repro_torch.kernels.fused_matmul import fused_packed_matmul_plain
     from repro_torch.kernels.hif4_quant import absorbed_activation
 
     saved = (engine.hif4_quantize, engine.fused_packed_matmul,
-             engine.fused_decode_attention)
-    engine.hif4_quantize = absorbed_activation
+             engine.fused_decode_attention, ops.hif4_quantize,
+             ops.bfp_matmul_quantized)
+    engine.hif4_quantize = ops.hif4_quantize = absorbed_activation
     engine.fused_packed_matmul = fused_packed_matmul_plain
     engine.fused_decode_attention = (
         lambda q, k, v, length, *, n_kv_heads, d_head, block_kv=None:
         fused_decode_attention_plain(q, k, v, length, n_kv_heads, d_head,
                                      block_kv=block_kv))
+    ops.bfp_matmul_quantized = bfp_matmul_quantized_plain
     try:
         yield
     finally:
         (engine.hif4_quantize, engine.fused_packed_matmul,
-         engine.fused_decode_attention) = saved
+         engine.fused_decode_attention, ops.hif4_quantize,
+         ops.bfp_matmul_quantized) = saved
+
+
+# card vs CPU: the largest share of prefill logits outside rtol=0.05,
+# atol=0.1 per policy. Under the head policy the HiF4 head re-quantizes the
+# body's last-bit card/CPU differences and amplifies them; its limit lies
+# between its reading and the CPU's own share under a reordered attention
+# (printed beside it), the model's sensitivity to float order
+E2E_SHARE = {"paper-iv": 0.01, "head": 0.10}
+# attention chunks of the reordered CPU run
+REORDER_CHUNK = 16
 
 
 def phase_e2e(dev, seed):
     """A 2-layer cut at full width from one set of weights, served three
-    ways: on the card through the kernels, on the card through the plain
-    versions, and on the CPU (plain versions)."""
+    ways under each of paper-iv (impl packed) and the head policy (impl
+    pallas, LM head through kernel 5): on the card through the kernels, on
+    the card through the plain versions, and on the CPU (plain versions)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
@@ -566,49 +902,94 @@ def phase_e2e(dev, seed):
         serving_ctx)
 
     cfg = dataclasses.replace(get_arch("qwen1.5-0.5b"), n_layers=2)
-    ctx = serving_setup(cfg)
     params = lm.init_params(cfg, seed + 2, device="cpu")
     gen = torch.Generator().manual_seed(seed + 3)
     tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
     sc = ServeConfig(max_new_tokens=8)
-    runs = {}
+    cpu = torch.device("cpu")
+    for policy in ("paper-iv", "head"):
+        ctx = serving_setup(cfg, policy)
+        runs = {}
 
-    def run(name, d):
-        sp = prepare_params_for_serving(params, cfg, ctx.plan, device=d)
-        lg, _ = build_decode_cache(cfg, sp, {"tokens": tokens.to(d)},
-                                   serving_ctx(ctx), sc)
-        toks = serve(cfg, sp, {"tokens": tokens}, ctx, sc, device=d)
-        runs[name] = (lg.float().cpu(), toks.cpu(), d)
+        def prefill_logits(d, c):
+            sp = prepare_params_for_serving(params, cfg, c.plan, device=d)
+            lg, _ = build_decode_cache(cfg, sp, {"tokens": tokens.to(d)},
+                                       serving_ctx(c), sc)
+            return lg.float().cpu(), sp
 
-    build.reset_launches()
-    run("card", dev)
-    check(all(n > 0 for k, n in build.LAUNCHES.items()
-              if k != "fused_paged_decode_attention"),
-          f"the card run launched {build.LAUNCHES}")
-    with plain_versions():
-        run("card-plain", dev)
-    run("cpu", torch.device("cpu"))
+        def run(name, d):
+            lg, sp = prefill_logits(d, ctx)
+            toks = serve(cfg, sp, {"tokens": tokens}, ctx, sc, device=d)
+            runs[name] = (lg, toks.cpu(), d)
 
-    lg_k, toks_k, _ = runs["card"]
-    lg_p, toks_p, _ = runs["card-plain"]
-    print(f"  card kernels vs card plain versions: prefill logits bitwise "
-          f"{torch.equal(lg_k, lg_p)}, greedy tokens equal "
-          f"{torch.equal(toks_k, toks_p)}")
-    check(torch.equal(lg_k, lg_p), "prefill logits: kernels != plain versions")
-    _check_tokens("card kernels vs card plain", toks_k, "card-plain", runs,
-                  cfg, params, ctx, tokens)
+        print(f"  policy {ctx.plan.policy.name}:")
+        build.reset_launches()
+        run("card", dev)
+        ran = {k for k, n in build.LAUNCHES.items() if n}
+        want = {"hif4_quantize", "fused_packed_matmul", "fused_decode_attention"}
+        if policy == "head":
+            want.add("bfp_matmul_quantized")
+        check(ran == want, f"the card run launched {build.LAUNCHES}")
+        with plain_versions():
+            run("card-plain", dev)
+        run("cpu", cpu)
 
-    lg_c, toks_c, _ = runs["cpu"]
-    diff = (lg_k - lg_c).abs()
-    outside = diff > 0.1 + 0.05 * lg_c.abs()
+        lg_k, toks_k, _ = runs["card"]
+        lg_p, toks_p, _ = runs["card-plain"]
+        print(f"  card kernels vs card plain versions: prefill logits bitwise "
+              f"{torch.equal(lg_k, lg_p)}, greedy tokens equal "
+              f"{torch.equal(toks_k, toks_p)}")
+        check(torch.equal(lg_k, lg_p), "prefill logits: kernels != plain versions")
+        _check_tokens("card kernels vs card plain", toks_k, "card-plain", runs,
+                      cfg, params, ctx, tokens)
+
+        lg_c = runs["cpu"][0]
+        reordered = dataclasses.replace(ctx, attn_q_chunk=REORDER_CHUNK,
+                                        attn_k_chunk=REORDER_CHUNK)
+        lg_r = prefill_logits(cpu, reordered)[0]
+        share = _outside_share("card vs cpu", lg_k, lg_c)
+        noise = _outside_share(f"cpu (attention chunks of {REORDER_CHUNK}) vs "
+                               f"cpu", lg_r, lg_c)
+        print(f"  card vs cpu limit {100 * E2E_SHARE[policy]:.0f}% (the CPU's "
+              f"own share under the reordered attention: {100 * noise:.3f}%)")
+        check(share <= E2E_SHARE[policy], f"more than "
+              f"{100 * E2E_SHARE[policy]:.0f}% of the prefill logits outside "
+              f"rtol=0.05, atol=0.1 between card and cpu")
+        if policy == "head":
+            _check_head_on_one_hidden_state(cfg, params, ctx, tokens, dev)
+        _check_tokens("card vs cpu", toks_k, "cpu", runs, cfg, params, ctx, tokens)
+
+
+def _outside_share(label, lg, ref) -> float:
+    """The share of ``lg`` outside rtol=0.05, atol=0.1 of ``ref``, printed."""
+    diff = (lg - ref).abs()
+    outside = diff > 0.1 + 0.05 * ref.abs()
     share = float(outside.float().mean())
-    print(f"  card vs cpu: prefill logits max |d| {float(diff.max()):.4f}, "
-          f"mean |d| {float(diff.mean()):.5f} (|logits| max "
-          f"{float(lg_c.abs().max()):.3f}); {int(outside.sum())} of "
-          f"{outside.numel()} ({100 * share:.3f}%) outside rtol=0.05, atol=0.1")
-    check(share <= 0.01, "more than 1% of the prefill logits outside "
-          "rtol=0.05, atol=0.1 between card and cpu")
-    _check_tokens("card vs cpu", toks_k, "cpu", runs, cfg, params, ctx, tokens)
+    print(f"  {label}: prefill logits max |d| {float(diff.max()):.4f}, mean |d| "
+          f"{float(diff.mean()):.5f} (|logits| max {float(ref.abs().max()):.3f}); "
+          f"{int(outside.sum())} of {outside.numel()} ({100 * share:.3f}%) "
+          f"outside rtol=0.05, atol=0.1")
+    return share
+
+
+def _check_head_on_one_hidden_state(cfg, params, ctx, tokens, dev):
+    """The LM head on the card (kernel 1 twice, kernel 5) and on the CPU
+    (plain versions), both on the card's final hidden state: bitwise."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve_loop import (
+        prepare_params_for_serving, serving_ctx)
+
+    sctx = serving_ctx(ctx)
+    sp = prepare_params_for_serving(params, cfg, ctx.plan, device=dev)
+    with head_inputs() as seen:
+        on_card = lm.prefill(sp, {"tokens": tokens.to(dev)}, cfg, sctx)[0]
+    sp_cpu = prepare_params_for_serving(params, cfg, ctx.plan, device="cpu")
+    on_cpu = lm.lm_logits(sp_cpu, seen[0].cpu(), cfg, sctx)[:, 0]
+    same = torch.equal(on_card.cpu().view(torch.int32), on_cpu.view(torch.int32))
+    print(f"  lm_head on the card's final hidden state: card (kernels 1, 5) vs "
+          f"cpu (plain versions) bitwise {same}")
+    check(same, "the LM head differs between card and cpu on one hidden state")
 
 
 def _check_tokens(label, toks, ref_name, runs, cfg, params, ctx, prompts):
@@ -778,8 +1159,9 @@ def phase_paged(dev, seed, records):
     check(launches["fused_paged_decode_attention"] == want4
           and launches["fused_decode_attention"] == 0,
           f"paged run launches {launches}")
-    check(all(n > 0 for k, n in launches.items() if k != "fused_decode_attention"),
-          f"paged run launched {launches}")
+    check({k for k, n in launches.items() if n} == {
+        "hif4_quantize", "fused_packed_matmul", "fused_paged_decode_attention"},
+        f"paged run launched {launches}")
     records.setdefault("fused_paged_decode_attention", {})["launches"] = launches[
         "fused_paged_decode_attention"]
     solo_ctx = dataclasses.replace(ctx, attn_kv_block=P)
@@ -803,8 +1185,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of repro_torch")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma list of phases to run (kernels,serve,e2e,"
-                         "paged); default all (paged needs kernels)")
+                    help="comma list of phases to run (kernels,serve,pallas,"
+                         "e2e,paged); default all")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
 
@@ -830,8 +1212,10 @@ def main(argv=None) -> int:
     phases = [("kernels", lambda: (check_quantize(dev, records),
                                    check_matmul(dev, records),
                                    check_attention(dev, records),
-                                   check_paged_attention(dev, records))),
+                                   check_paged_attention(dev, records),
+                                   check_bfp_matmul(dev, records))),
               ("serve", lambda: phase_serve(dev, args.seed, records)),
+              ("pallas", lambda: phase_pallas(dev, args.seed, records)),
               ("e2e", lambda: phase_e2e(dev, args.seed)),
               ("paged", lambda: phase_paged(dev, args.seed, records))]
     try:
@@ -855,7 +1239,7 @@ def main(argv=None) -> int:
         print(f"FAILED: {type(e).__name__}: {e}")
         return 1
     names = ["hif4_quantize", "fused_packed_matmul", "fused_decode_attention",
-             "fused_paged_decode_attention"]
+             "fused_paged_decode_attention", "bfp_matmul_quantized"]
     print(f"kernels: {json.dumps(names)}")
     if not only:
         print(json.dumps({"kernels": [dict(records[n], kernel_ms=records[n]["ms"])

@@ -9,14 +9,16 @@ packed-KV decode attention (port of ``repro/core/engine.py``).
            by ``hif4_quantize`` and the kernel expands the 4.5-bit payload
            in shared memory. On CUDA tensors the two CUDA kernels always
            launch; on CPU tensors their plain versions run, with the
-           reference's off-TPU cap on the plain version's (K/64, M, N)
-           intermediate (above it: dequantize-then-dot).
+           reference's off-TPU size cap (above it: dequantize-then-dot).
   pallas — on a PackedW the same fused path as ``packed``; on a dense weight
-           it needs the ``bfp_matmul_quantized`` kernel, which is not yet
-           ported (raises).
+           both operands are quantized by ``hif4_quantize`` on every call and
+           contracted by ``bfp_matmul_quantized`` (kernels 1 and 5 on CUDA
+           tensors, their plain versions on CPU tensors).
 
-Dispatch is total otherwise, following the reference's fallback table:
+Dispatch is total, following the reference's fallback table:
 
+  * non-HiF4 formats on ``pallas``          -> qdq
+  * ``weights_only`` on ``pallas``          -> qdq
   * dense (unpacked) weight under ``packed``-> qdq
   * PackedW under ``qdq``                   -> dequantize-then-dot
   * PackedW x ``weights_only`` / non-HiF4
@@ -52,11 +54,9 @@ from repro_torch.kernels.fused_attention import (
     kernel_compatible,
     select_kv_block,
 )
-from repro_torch.kernels.fused_matmul import (
-    cuda_tiles,
-    fused_packed_matmul,
-    select_block_sizes,
-)
+from repro_torch.kernels import ops
+from repro_torch.kernels.bfp_matmul import cuda_tiles, select_block_sizes
+from repro_torch.kernels.fused_matmul import fused_packed_matmul
 from repro_torch.kernels.hif4_quant import hif4_quantize
 
 
@@ -101,10 +101,7 @@ def matmul(x: torch.Tensor, w, ectx: EngineCtx = DEFAULT_ENGINE, *,
     if (cfg.enabled and cfg.impl == "pallas"
             and _pallas_activation_ok(cfg, x, contract_x)
             and _pallas_weight_ok(w, contract_w)):
-        raise NotImplementedError(
-            "impl='pallas' on a dense weight runs bfp_matmul_quantized, which "
-            "is not yet ported to repro_torch (pack the weight, or use "
-            "impl='packed'/'qdq')")
+        return _pallas_dense_matmul(x, w)
     return _qdq_matmul(x, w, cfg, contract_x=contract_x, contract_w=contract_w,
                        accum_dtype=accum_dtype)
 
@@ -145,9 +142,9 @@ def _fused_packed_ok(cfg: QuantConfig, x, contract_x: int, w: PackedW) -> bool:
     )
 
 
-# The plain version's group-batched GEMM materializes a (K/64, M, N) f32
-# intermediate (the kernel keeps it in registers). Above this cap the CPU
-# takes the dequantize fallback, as the reference does off-TPU.
+# The reference's off-TPU cap: its XLA twin's group-batched dot materializes
+# a (K/64, M, N) f32 intermediate, and above this size it takes the
+# dequantize fallback. The CPU here takes the same route at the same sizes.
 _PLAIN_FUSED_PART_BYTES_MAX = 128 * 2 ** 20
 
 
@@ -273,7 +270,7 @@ def _packed_matmul(x, w: PackedW, ectx: EngineCtx, *, contract_x, accum_dtype):
 
 
 # ---------------------------------------------------------------------------
-# pallas eligibility (dense weights: kernel not yet ported)
+# pallas path: Algorithm-1 quantize kernel + §III.B fixed-point matmul
 # ---------------------------------------------------------------------------
 
 
@@ -286,3 +283,20 @@ def _pallas_activation_ok(cfg: QuantConfig, x, contract_x: int) -> bool:
 def _pallas_weight_ok(w, contract_w: int) -> bool:
     return (w.ndim == 2 and contract_w % w.ndim == 0
             and w.shape[0] % hif4.GROUP_SIZE == 0)
+
+
+def _pallas_dense_matmul(x, w):
+    """Both operands quantized by Algorithm 1 on every call (A-W dynamic
+    quantization), contracted by the fixed-point kernel. The f32 result is
+    cast to ``x.dtype``, as the reference casts it: a bf16 ``x`` (the LM
+    head's) rounds its logits to bf16 here."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    y = ops.matmul(x.reshape(-1, k), w)
+    return y.reshape(lead + (w.shape[1],)).to(x.dtype)
+
+
+def packed_to_absorbed(w: PackedW) -> tuple[torch.Tensor, torch.Tensor]:
+    """PackedW -> (ints (K, N) int8, scales (K/64, N) f32): the absorbed-shift
+    integers of §III.B that kernel 2 expands per tile, materialized (kernel
+    5 on them is bitwise kernel 2 on ``w``)."""
+    return hif4.absorbed_int_km(*w.kernel_operands())

@@ -1,8 +1,7 @@
 """Per-site quantization policy: WHAT gets quantized, decided in one place.
 
 Port of ``repro/core/policy.py`` (same rules, plans, presets and JSON
-format, so a policy file written by the JAX package loads unchanged). The
-``nvfp4-baseline`` preset raises "not yet ported" until NVFP4 exists here.
+format, so a policy file written by the JAX package loads unchanged).
 
 The paper quantizes the transformer body to HiF4 while keeping sensitive
 tensors (embedding, LM head, MoE router — §IV) in high precision, and its
@@ -447,11 +446,9 @@ def _sensitive_fallback(impl: str) -> tuple:
 
 PRESETS = {
     "paper-iv": _paper_iv,
+    "nvfp4-baseline": _nvfp4_baseline,
     "sensitive-fallback": _sensitive_fallback,
 }
-
-# presets of the reference whose formats this port does not carry yet
-NOT_YET_PORTED_PRESETS = {"nvfp4-baseline": _nvfp4_baseline}
 
 
 def known_policy_spec(spec: str) -> bool:
@@ -465,7 +462,7 @@ def known_policy_spec(spec: str) -> bool:
             return True
         try:
             get_format(fmt)
-        except (ValueError, NotImplementedError):
+        except ValueError:
             return False
         return True
     return False
@@ -498,10 +495,6 @@ def get_policy(spec: str, *, impl: str = "packed",
         return QuantPolicy.uniform(QuantConfig(fmt=fmt, impl=impl, kv=kv))
     if spec in PRESETS:
         return QuantPolicy(rules=PRESETS[spec](impl), kv=kv, name=spec)
-    if spec in NOT_YET_PORTED_PRESETS:
-        raise NotImplementedError(
-            f"policy preset {spec!r} is not yet ported to repro_torch "
-            f"(its format has no port yet); have {sorted(PRESETS)}")
     raise ValueError(
         f"unknown policy {spec!r}: expected a JSON file, 'uniform:<fmt>', "
         f"or one of {sorted(PRESETS)}")

@@ -23,7 +23,7 @@ from repro_torch.core.kvcache import KVCacheConfig
 class QuantConfig:
     """How matmuls inside models are quantized.
 
-    fmt             : 'hif4' | 'none'
+    fmt             : 'hif4' | 'nvfp4' | 'nvfp4_pts' | 'mxfp4' | 'none'
     weights_only    : quantize only the weight operand
     offline_weights : weights were already quantized once offline; skip
                       the in-graph weight QDQ
@@ -121,6 +121,24 @@ def quantize_params_offline(params, cfg: QuantConfig, *, plan=None,
         return q(parts, node)
 
     return walk(params, [])
+
+
+# ---------------------------------------------------------------------------
+# Fixed-point dot product (paper Eq. 3 / Fig. 4) — reference-level
+# ---------------------------------------------------------------------------
+
+
+def hif4_dot_fixed_point(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot of two vectors (length a multiple of 64) via the paper's integer
+    flow: both quantized to HiF4, micro-exponents absorbed into int8
+    elements, an int32 dot per 64-group, then one float multiply by the two
+    group scales per group."""
+    ga = hif4.quantize_groups(a.reshape(-1, hif4.GROUP_SIZE))
+    gb = hif4.quantize_groups(b.reshape(-1, hif4.GROUP_SIZE))
+    ia, sa = hif4.to_absorbed_int(ga)
+    ib, sb = hif4.to_absorbed_int(gb)
+    acc = torch.sum(ia.to(torch.int32) * ib.to(torch.int32), dim=-1)
+    return torch.sum(sa * sb * acc.to(torch.float32))
 
 
 # ---------------------------------------------------------------------------

@@ -30,12 +30,13 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("hif4_quant", "fused_matmul", "fused_attention")
+SOURCES = ("hif4_quant", "fused_matmul", "fused_attention", "bfp_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: dict = {"hif4_quantize": 0, "fused_packed_matmul": 0,
-                  "fused_decode_attention": 0, "fused_paged_decode_attention": 0}
+                  "fused_decode_attention": 0, "fused_paged_decode_attention": 0,
+                  "bfp_matmul_quantized": 0}
 
 _LIBS: dict = {}
 

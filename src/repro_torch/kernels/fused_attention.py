@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.core import kvcache
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_matmul import _fit
+from repro_torch.kernels.bfp_matmul import _fit
 
 NEG_INF = -1e30   # masked-score value (repro_torch.models.attention.NEG_INF)
 

@@ -6,15 +6,14 @@ fused_packed_matmul`` as the CUDA kernel ``csrc/fused_matmul.cu``:
   a_ints (M, K) int8, a_scales (M, K/64) f32,
   codes_km (K/2, N) uint8, meta_km (K/64, N) int32 (uint32 bits) -> (M, N) f32
 
-Each 64-group's dot is exact in int32 and rescaled once in f32 by
-``a_scale * b_scale``; only the f32 sum over groups may take another order.
-:func:`fused_packed_matmul_plain` is the plain PyTorch version (a
-transcription of the reference's ``fused_packed_matmul_xla``: one
-group-batched float32 GEMM of the exact integers, then the rescale summed
-over groups); :func:`fused_packed_matmul` takes it only for CPU tensors.
-:func:`select_block_sizes` keeps the reference's per-regime tiles (decode
-M <= 32 vs prefill) for the dispatch report; :func:`cuda_tiles` names the
-tiles the CUDA kernel uses in each regime.
+The CTA body (``csrc/group_matmul.cuh``) is kernel 5's, with a loader that
+expands the packed tile to absorbed int8 in shared memory. Each 64-group's
+dot is exact in int32 and rescaled in f32 by ``a_scale * b_scale``, summed
+in group order. :func:`fused_packed_matmul_plain` is the plain PyTorch
+version: the weight expanded by ``hif4.absorbed_int_km`` (the reference's
+in-kernel unpack), then kernel 5's plain version, so kernel and plain
+version agree bitwise; :func:`fused_packed_matmul` takes it only for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -24,70 +23,17 @@ import torch
 
 from repro_torch.core import hif4
 from repro_torch.kernels import build
-
-GROUP = 64
-# Decode M (a batch of single-token rows) vs prefill M regime boundary.
-DECODE_M_MAX = 32
-
-
-def _fit(dim: int, want: int, quantum: int) -> int:
-    """Largest block <= want that divides dim and is a multiple of quantum."""
-    b = (want // quantum) * quantum
-    while b > quantum and dim % b != 0:
-        b -= quantum
-    b = max(b, quantum)
-    if dim % b:
-        raise ValueError(f"no block for dim={dim} (want {want}, quantum {quantum})")
-    return b
-
-
-def select_block_sizes(M: int, N: int, K: int) -> tuple[int, int, int]:
-    """The reference's (bm, bn, bk) per regime: decode takes all of M with
-    deep-K / wide-N tiles, prefill square-ish 256/256/512 tiles."""
-    if M <= DECODE_M_MAX:
-        return M, _fit(N, min(512, N), 1), _fit(K, min(1024, K), GROUP)
-    return (_fit(M, min(256, M), 1), _fit(N, min(256, N), 1),
-            _fit(K, min(512, K), GROUP))
-
-
-def cuda_tiles(M: int) -> tuple[int, int, int]:
-    """(BM, BN, 64-groups staged per step) of the CUDA kernel for this M."""
-    if M <= 16:
-        return 16, 32, 4
-    if M <= DECODE_M_MAX:
-        return 32, 32, 4
-    return 64, 64, 2
-
-
-def _tile_group_dot(a, asc, b, bsc):
-    """All 64-groups in one batched contraction (reference
-    ``bfp_matmul._tile_group_dot``): a (M, K) int8, asc (M, K/64) f32,
-    b (K, N) int8, bsc (K/64, N) f32 -> (M, N) f32. The group dots run as a
-    float32 GEMM of integers (|product| <= 784, group sums < 2^24: exact)."""
-    M, K = a.shape
-    g = K // GROUP
-    a3 = a.reshape(M, g, GROUP).to(torch.float32).transpose(0, 1)  # (g, M, 64)
-    b3 = b.reshape(g, GROUP, -1).to(torch.float32)                 # (g, 64, N)
-    part = torch.bmm(a3, b3)                                       # (g, M, N)
-    scaled = part * asc.T[:, :, None] * bsc[:, None, :]
-    return torch.sum(scaled, dim=0)
-
-
-def group_partials(a_ints: torch.Tensor, codes_km: torch.Tensor,
-                   meta_km: torch.Tensor) -> torch.Tensor:
-    """(K/64, M, N) int32: the exact integer dot of every 64-group."""
-    M, K = a_ints.shape
-    b_ints, _ = hif4.absorbed_int_km(codes_km, meta_km)
-    g = K // GROUP
-    a3 = a_ints.reshape(M, g, GROUP).to(torch.float32).transpose(0, 1)
-    part = torch.bmm(a3, b_ints.reshape(g, GROUP, -1).to(torch.float32))
-    return part.to(torch.int32)
+from repro_torch.kernels.bfp_matmul import (
+    DECODE_M_MAX,
+    GROUP,
+    bfp_matmul_quantized_plain,
+)
 
 
 def fused_packed_matmul_plain(a_ints, a_scales, codes_km, meta_km):
-    """Plain version: unpack the packed weight, then :func:`_tile_group_dot`."""
-    b_ints, b_scales = hif4.absorbed_int_km(codes_km, meta_km)
-    return _tile_group_dot(a_ints, a_scales, b_ints, b_scales)
+    """Plain version: unpack the packed weight, then kernel 5's plain version."""
+    return bfp_matmul_quantized_plain(a_ints, a_scales,
+                                      *hif4.absorbed_int_km(codes_km, meta_km))
 
 
 def _check(a_ints, a_scales, codes_km, meta_km):

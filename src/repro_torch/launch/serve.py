@@ -9,6 +9,18 @@
         --reduced --device cpu --batch 2 --prompt-len 8 --new-tokens 4 \
         --policy paper-iv --impl packed --kv-format hif4 \
         --kv-pages 8 --kv-page-tokens 8                   # paged scheduler
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --impl pallas --kv-format hif4 --policy head.json   # on cuda
+
+``--impl pallas`` packs the block weights (kernels 1 and 2, as ``packed``)
+and runs a quantized dense weight through the fixed-point route: with a
+policy JSON whose rules quantize ``lm_head`` (e.g. ``*`` -> hif4, then
+``embed`` and ``*.router`` -> none), the tied LM head quantizes the
+embedding and the activations on every call (kernel 1 twice) and contracts
+them with ``bfp_matmul_quantized`` (kernel 5). ``--quant`` and
+``uniform:<fmt>`` take hif4, nvfp4, nvfp4_pts and mxfp4; the baselines, and
+``--policy nvfp4-baseline``, serve fake-quant (no packed container exists
+for them).
 
 Prints the same residency, plan and dispatch lines as the JAX launcher
 (``repro.launch.serve``), then one line of tokens per request. Weights are
@@ -136,7 +148,9 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
-    ap.add_argument("--quant", default="hif4")
+    ap.add_argument("--quant", default="hif4",
+                    help="format without --policy: hif4, nvfp4, nvfp4_pts, "
+                         "mxfp4 or none")
     ap.add_argument("--impl", default="packed", choices=["qdq", "packed", "pallas"])
     ap.add_argument("--decode-chunk", type=int, default=0,
                     help="tokens between host checks of the eos mask")
@@ -148,7 +162,8 @@ def parse_args(argv=None):
                     help="tokens per KV pool page")
     ap.add_argument("--policy", default=None,
                     help="per-site quantization policy: paper-iv, "
-                         "sensitive-fallback, uniform:<fmt> or a policy JSON")
+                         "nvfp4-baseline, sensitive-fallback, uniform:<fmt> "
+                         "or a policy JSON")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")

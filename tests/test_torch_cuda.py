@@ -1,4 +1,4 @@
-"""The four CUDA kernels of the port against their plain PyTorch versions,
+"""The five CUDA kernels of the port against their plain PyTorch versions,
 on a CUDA card. Every test here carries the ``cuda`` marker and skips
 without a card (the kernels have no interpret mode); the file imports no
 JAX, so it runs on the card's machine:
@@ -6,21 +6,26 @@ JAX, so it runs on the card's machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: hif4_quantize bitwise; fused_packed_matmul within 1e-5 of the
-summed group magnitudes (only the f32 order of the sum over 64-groups may
-differ); fused_decode_attention rtol=2^-7, atol=1e-3 (f32 sum orders and
-``expf`` differ from the plain version); an E6M2 0xFF meta word yields NaN
-in its slot only, as in the plain version. fused_paged_decode_attention
-within the same tolerance of its plain version, BITWISE equal to
-fused_decode_attention at ``block_kv = P`` on the same bytes laid out
-contiguously (one CTA body, two tile loaders), and NaN metadata in a page
-reaches exactly the slots whose tables hold that page.
+summed group magnitudes (its plain version is kernel 5's on the expanded
+weight, so it is bitwise in fact); bfp_matmul_quantized bitwise to its
+plain version (same group order, no contracted multiply-add) and to
+fused_packed_matmul on the absorbed expansion of a packed weight (one CTA
+body); a NaN scale reaches exactly its row or column; fused_decode_attention
+rtol=2^-7, atol=1e-3 (f32 sum orders and ``expf`` differ from the plain
+version); an E6M2 0xFF meta word yields NaN in its slot only, as in the
+plain version. fused_paged_decode_attention within the same tolerance of
+its plain version, BITWISE equal to fused_decode_attention at
+``block_kv = P`` on the same bytes laid out contiguously (one CTA body, two
+tile loaders), and NaN metadata in a page reaches exactly the slots whose
+tables hold that page.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import hif4, kvcache
+from repro_torch.core import engine, hif4, kvcache
 from repro_torch.core.qlinear import PackedW
+from repro_torch.kernels import bfp_matmul as TB
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_attention as TA
 from repro_torch.kernels import fused_matmul as TM
@@ -64,7 +69,8 @@ def test_matmul_vs_plain(cuda, m, k, n):
     y = TM.fused_packed_matmul(ai, asc, pw.codes, pw.meta)
     ref = TM.fused_packed_matmul_plain(ai, asc, pw.codes, pw.meta)
     b_ints, b_sc = hif4.absorbed_int_km(pw.codes, pw.meta)
-    abs_sum = TM._tile_group_dot(ai.abs(), asc.abs(), b_ints.abs(), b_sc.abs())
+    abs_sum = TB.bfp_matmul_quantized_plain(ai.abs(), asc.abs(), b_ints.abs(),
+                                            b_sc.abs())
     assert bool(((y - ref).abs() <= 1e-5 * abs_sum).all())
 
 
@@ -157,3 +163,84 @@ def test_paged_attention_refuses_empty_work(cuda):
         TA.fused_paged_decode_attention(q[:0], kp, vp, pages[:0], length[:0],
                                         n_kv_heads=16, d_head=64)
     assert build.LAUNCHES["fused_paged_decode_attention"] == 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: bfp_matmul_quantized
+# ---------------------------------------------------------------------------
+
+
+def _int8_operands(m, k, n, device, seed=15):
+    """Absorbed operands as the engine makes them: a (M, K) row-major, b the
+    transposed views of hif4_quantize(w.T), K-contiguous per column."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(device)
+    w = (torch.randn(n, k, generator=g) * 0.02).to(torch.bfloat16).to(device)
+    ai, asc = TQ.hif4_quantize(x)
+    wi, wsc = TQ.hif4_quantize(w)
+    return ai, asc, wi.T, wsc.T
+
+
+@pytest.mark.parametrize("m, k, n", [(8, 1024, 151936), (3840, 1024, 2816),
+                                     (37, 320, 1000)])
+def test_bfp_matmul_bitwise_vs_plain(cuda, m, k, n):
+    """The LM head's decode shape, the prefill shape, and a ragged one (M and
+    N tails, K/64 = 5 groups: not a multiple of the groups per step)."""
+    ai, asc, bi, bsc = _int8_operands(m, k, n, cuda)
+    build.reset_launches()
+    y = TB.bfp_matmul_quantized(ai, asc, bi, bsc)
+    assert build.LAUNCHES["bfp_matmul_quantized"] == 1
+    ref = TB.bfp_matmul_quantized_plain(ai, asc, bi, bsc)
+    assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("m", [8, 300])
+def test_bfp_matmul_bitwise_vs_fused_matmul(cuda, m):
+    g = torch.Generator().manual_seed(16)
+    w = (torch.randn(1024, 2816, generator=g) * 0.02).to(torch.bfloat16).to(cuda)
+    pw = PackedW.from_dense(w).to_kernel_layout()
+    ai, asc = TQ.hif4_quantize(_act(16, m, 1024, cuda))
+    y5 = TB.bfp_matmul_quantized(ai, asc, *engine.packed_to_absorbed(pw))
+    y2 = TM.fused_packed_matmul(ai, asc, pw.codes, pw.meta)
+    assert torch.equal(y5.view(torch.int32), y2.view(torch.int32))
+
+
+def test_bfp_matmul_nan_scale_reaches_its_row_and_column_only(cuda):
+    ai, asc, bi, bsc = _int8_operands(8, 256, 200, cuda)
+    asc[3, 2] = float("nan")
+    bsc[1, 130] = float("nan")                        # group 1 of column 130
+    y = TB.bfp_matmul_quantized(ai, asc, bi, bsc)
+    want = torch.zeros_like(y, dtype=torch.bool)
+    want[3, :] = True
+    want[:, 130] = True
+    assert torch.equal(y.isnan(), want)
+    assert torch.equal(y.isnan(), TB.bfp_matmul_quantized_plain(
+        ai, asc, bi, bsc).isnan())
+
+
+def test_bfp_matmul_launches_on_a_transposed_view_without_a_copy(cuda, monkeypatch):
+    ai, asc, bi, bsc = _int8_operands(8, 256, 96, cuda)
+    seen = []
+    function = build.function
+
+    def spy(lib, name, argtypes):
+        fn = function(lib, name, argtypes)
+        return lambda *args: (seen.append(args), fn(*args))[1]
+
+    monkeypatch.setattr(build, "function", spy)
+    TB.bfp_matmul_quantized(ai, asc, bi, bsc)        # transposed views
+    assert seen[-1][2] == bi.data_ptr() and seen[-1][3] == bsc.data_ptr()
+    row_major = bi.contiguous()                      # a direct caller's (K, N)
+    y = TB.bfp_matmul_quantized(ai, asc, row_major, bsc)
+    assert seen[-1][2] not in (bi.data_ptr(), row_major.data_ptr())   # copied
+    assert torch.equal(y, TB.bfp_matmul_quantized(ai, asc, bi, bsc))
+
+
+def test_bfp_matmul_refuses_empty_work(cuda):
+    ai, asc, bi, bsc = _int8_operands(8, 256, 96, cuda)
+    build.reset_launches()
+    with pytest.raises(ValueError):
+        TB.bfp_matmul_quantized(ai[:0], asc[:0], bi, bsc)
+    with pytest.raises(ValueError):
+        TB.bfp_matmul_quantized(ai, asc, bi[:, :0], bsc[:, :0])
+    assert build.LAUNCHES["bfp_matmul_quantized"] == 0

@@ -74,11 +74,32 @@ def test_dense_weight_routes():
     y = TE.matmul(x, w, TE.EngineCtx(cfg))          # dense under packed -> qdq
     ref = TE.dot(hif4.qdq(x), hif4.qdq(w, axis=0), torch.bfloat16)
     assert torch.equal(y, ref)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TE.matmul(x, w, TE.EngineCtx(QuantConfig(fmt="hif4", impl="pallas")))
+    # dense under pallas: the §III.B fixed-point flow, bit-exact to the f32
+    # dot of the quantized operands up to the bf16 output cast (the
+    # reference's tests/test_engine.py::test_pallas_dense_equals_exact_fixed_point)
+    y = TE.matmul(x, w, TE.EngineCtx(QuantConfig(fmt="hif4", impl="pallas")))
+    exact = hif4.qdq(x.float(), axis=-1) @ hif4.qdq(w.float(), axis=0)
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, exact.to(torch.bfloat16))
     y32 = TE.matmul(x, w, TE.EngineCtx(), accum_dtype=torch.float32)
     assert y32.dtype == torch.bfloat16               # cast back to x.dtype
     assert torch.equal(y32, (x.float() @ w.float()).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("cfg", [
+    QuantConfig(fmt="nvfp4", impl="pallas"),
+    QuantConfig(fmt="mxfp4", impl="pallas"),
+    QuantConfig(fmt="hif4", impl="pallas", weights_only=True)])
+def test_pallas_fallbacks_to_qdq(cfg):
+    """Non-HiF4 formats and weights_only cannot run the integer kernels:
+    the pallas impl runs them as qdq (the reference's
+    tests/test_engine.py::test_pallas_fallbacks_to_qdq)."""
+    import dataclasses
+
+    x, w, _ = _setup()
+    got = TE.matmul(x, w, TE.EngineCtx(cfg))
+    want = TE.matmul(x, w, TE.EngineCtx(dataclasses.replace(cfg, impl="qdq")))
+    assert torch.equal(got, want)
 
 
 def test_qdq_matmul_close_to_reference():

@@ -4,7 +4,8 @@
   anything of the JAX package (an AST scan of every import).
 * Entry points run on ``cuda`` unless the caller asks for the CPU: without a
   CUDA device they raise instead of running on the CPU.
-* What the port does not carry yet raises "not yet ported".
+* What the port does not carry yet raises "not yet ported"; what it now
+  carries (the NVFP4/MXFP4 formats) resolves.
 """
 import ast
 import os
@@ -22,7 +23,12 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import lm
 from repro_torch.models.common import ModelCtx
-from repro_torch.runtime.serve_loop import ServeConfig, prepare_params_for_serving, serve
+from repro_torch.runtime.serve_loop import (
+    ServeConfig,
+    prepare_params_for_serving,
+    serve,
+    serve_requests,
+)
 
 # One intra-op thread: the suite runs several pytest-xdist workers at once,
 # and torch's default pool (a thread per core in each) oversubscribes the CPU.
@@ -104,8 +110,12 @@ def test_cpu_runs_only_when_asked():
 
 
 def test_not_yet_ported_parts_raise():
+    assert get_format("nvfp4").name == "nvfp4"
+    cfg = get_arch("qwen1.5-0.5b").reduced()
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_format("nvfp4")
+        serve_requests(cfg, lm.init_params(cfg, 0, device="cpu"),
+                       [torch.zeros(8, dtype=torch.long)], ModelCtx(),
+                       ServeConfig(max_new_tokens=2), device="cpu", resume=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         lm.abstract_params(get_arch("qwen1.5-0.5b").__class__(
             name="m", family="moe", n_layers=1, d_model=64, vocab=8))

@@ -35,6 +35,7 @@ from repro.kernels.hif4_quant import hif4_quantize as j_hif4_quantize
 from repro_torch import interop
 from repro_torch.core import kvcache as TK
 from repro_torch.core.qlinear import PackedW as TPackedW
+from repro_torch.kernels import bfp_matmul as TB
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_attention as TA
 from repro_torch.kernels import fused_matmul as TM
@@ -96,7 +97,8 @@ def _assert_close_to_abs_sum(yt, yj, ai, asc, codes, meta):
     group partials are exact, only the f32 order of their sum differs, so
     the error scales with the summed magnitudes, not with a cancelled y."""
     b_ints, b_sc = TK.hif4.absorbed_int_km(codes, meta)
-    abs_sum = TM._tile_group_dot(ai.abs(), asc.abs(), b_ints.abs(), b_sc.abs())
+    abs_sum = TB.bfp_matmul_quantized_plain(ai.abs(), asc.abs(), b_ints.abs(),
+                                            b_sc.abs())
     assert (np.abs(yt - yj) <= 1e-6 * abs_sum.numpy()).all()
 
 
@@ -113,7 +115,7 @@ def test_matmul_plain_vs_reference(m, k, n):
         ai.reshape(m, g, 64), b_ints.reshape(g, 64, n),
         dimension_numbers=(((2,), (1,)), ((1,), (0,))),
         preferred_element_type=jnp.int32)
-    part_t = TM.group_partials(_t(ai), codes, meta)
+    part_t = TB.group_partials(_t(ai), TK.hif4.absorbed_int_km(codes, meta)[0])
     np.testing.assert_array_equal(np.asarray(part_j), part_t.numpy())
     yj = np.asarray(jax.jit(JM.fused_packed_matmul_xla)(ai, asc, pw.codes, pw.meta))
     yt = TM.fused_packed_matmul(_t(ai), _t(asc), codes, meta).numpy()
@@ -134,7 +136,7 @@ def test_matmul_plain_vs_interpret_kernel():
 @pytest.mark.parametrize("m, n, k", [(8, 1024, 1024), (8, 2816, 1024),
                                      (3840, 1024, 2816), (64, 96, 192)])
 def test_block_selection_matches_reference(m, n, k):
-    assert TM.select_block_sizes(m, n, k) == JB.select_block_sizes(m, n, k)
+    assert TB.select_block_sizes(m, n, k) == JB.select_block_sizes(m, n, k)
 
 
 # ---------------------------------------------------------------------------
@@ -261,4 +263,5 @@ def test_launch_counters_only_count_kernel_launches():
     TM.fused_packed_matmul(ai, asc, pw.codes, pw.meta)
     assert build.LAUNCHES == {"hif4_quantize": 0, "fused_packed_matmul": 0,
                               "fused_decode_attention": 0,
-                              "fused_paged_decode_attention": 0}
+                              "fused_paged_decode_attention": 0,
+                              "bfp_matmul_quantized": 0}

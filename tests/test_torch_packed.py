@@ -227,6 +227,8 @@ def test_policy_json_round_trip_and_strictness(tmp_path):
     assert loaded.kv.kv_format == "hif4"
     with pytest.raises(ValueError):
         TP.QuantPolicy.from_json_dict({"rulse": []})
-    with pytest.raises(NotImplementedError):
-        TP.get_policy("nvfp4-baseline")
-    assert not TP.known_policy_spec("nvfp4-baseline")
+    # nvfp4-baseline resolves as the reference's preset does
+    tb = TP.get_policy("nvfp4-baseline", impl="pallas", kv=TK.KV_HIF4)
+    jb = JP.get_policy("nvfp4-baseline", impl="pallas", kv=JK.KV_HIF4)
+    assert tb.to_json_dict() == jb.to_json_dict()
+    assert TP.known_policy_spec("nvfp4-baseline")

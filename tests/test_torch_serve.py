@@ -17,6 +17,7 @@ impl packed / HiF4 KV cache, with the reference's weights carried across by
 * Greedy tokens from ``serve()`` equal the reference's.
 * The launcher runs on the CPU in a subprocess, lockstep and paged.
 """
+import json
 import os
 import subprocess
 import sys
@@ -245,3 +246,42 @@ def test_launcher_serves_paged_on_cpu():
     assert len(req) == 2
     assert req == [ln for ln in lockstep.stdout.splitlines()
                    if ln.startswith("request ")]
+
+
+def test_launcher_serves_the_dense_pallas_head_on_cpu(tmp_path):
+    """A policy JSON that quantizes the tied LM head under ``--impl pallas``:
+    the block sites pack, the head runs the dense pallas route, and the plan
+    prints it as the JAX launcher does."""
+    policy = tmp_path / "head.json"
+    policy.write_text(json.dumps({
+        "name": "hif4-with-head", "kv_format": "hif4",
+        "rules": [{"pattern": "*", "fmt": "hif4"},
+                  {"pattern": "embed", "fmt": "none"},
+                  {"pattern": "*.router", "fmt": "none"}]}))
+    out = _launch("--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
+                  "--batch", "2", "--prompt-len", "8", "--new-tokens", "3",
+                  "--impl", "pallas", "--kv-format", "hif4",
+                  "--policy", str(policy))
+    assert out.returncode == 0, out.stderr
+    text = out.stdout
+    assert "policy plan [hif4-with-head] (7/9 sites packed)" in text
+    head = [ln.split() for ln in text.splitlines() if ln.strip().startswith("lm_head")]
+    assert head == [["lm_head", "hif4", "pallas", "(tied", "->", "embed)", "0"]]
+    lines = [ln for ln in text.splitlines() if ln.startswith("request ")]
+    assert len(lines) == 2 and all(len(eval(ln.split(": ", 1)[1])) == 3
+                                   for ln in lines)
+
+
+@pytest.mark.parametrize("flags, plan", [
+    (("--policy", "nvfp4-baseline", "--impl", "pallas", "--kv-format", "hif4"),
+     "policy plan [nvfp4-baseline] (0/9 sites packed)"),
+    (("--quant", "mxfp4"), None)])
+def test_launcher_serves_baseline_formats_on_cpu(flags, plan):
+    out = _launch("--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
+                  "--batch", "2", "--prompt-len", "8", "--new-tokens", "3", *flags)
+    assert out.returncode == 0, out.stderr
+    assert "no packed weights resident (fake-quant bf16 artifact)" in out.stdout
+    if plan:
+        assert plan in out.stdout
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("request ")]
+    assert len(lines) == 2
