@@ -6,18 +6,26 @@
 Phases (any failure ends the run with a nonzero exit):
 
 1. device  — a CUDA device, its name and power limit (nvidia-smi);
-2. build   — the CUDA kernels of src/repro_torch/csrc (four sources, five
+2. build   — the CUDA kernels of src/repro_torch/csrc (five sources, six
              kernels), built with nvcc, one process per source in parallel;
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes of the main paths, with times (CUDA events) beside
-             the least time the card could take (bound_ms) and a library
-             yardstick where PyTorch has one; kernel 1 also at the tied
-             embedding's shape, kernel 5 bitwise against kernel 2 on the
-             absorbed expansion of a packed weight;
+             the shapes of the main paths, with times beside the least time
+             the card could take (bound_ms) and a library yardstick where
+             PyTorch has one: kernel_ms (CUDA events around the eager loop
+             of wrapper calls, so host dispatch shows where the host is the
+             slower side), device_ms (the same calls captured in a CUDA
+             graph, its replays timed) and host_us (host clock per wrapper
+             call); kernel 1 also at the prefill and tied embedding's
+             shapes, kernel 5 bitwise against kernel 2 on the absorbed
+             expansion of a packed weight; the decode form of kernel 2
+             (kernel 1 as its prologue) bitwise against its plain version
+             and kernel 5 at the three decode shapes, timed beside the pair
+             it replaces;
 4. serve   — the main path: full-width qwen1.5-0.5b, policy paper-iv, impl
              packed, HiF4 KV cache, batch 8, prompt 480, 32 new tokens,
              random weights from --seed; the launch counters must show every
-             kernel ran the expected number of times;
+             kernel ran the expected number of times (decode linears: one
+             launch of the decode form each);
 5. pallas  — the same serve under impl pallas with a policy that quantizes
              the tied LM head (paper-iv's rules without its lm_head
              exclusion): per logits call kernel 1 on the activations and on
@@ -116,6 +124,66 @@ def cuda_ms(fn, args_list, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, args_list, iters: int = 100, replays: int = 5) -> float:
+    """Mean device ms per call: the same rotating calls as :func:`cuda_ms`,
+    captured in one CUDA graph whose replays are timed with events, so the
+    window holds no host work. The warm-up before the capture does the lazy
+    module loading, the library load and any shared-memory attribute; the
+    launch counters count the capture, not the replays (callers reset them
+    before the runs they check)."""
+    import torch
+
+    for i in range(3):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
+
+
+def host_us(fn, args_list, iters: int = 200) -> float:
+    """Mean host microseconds per wrapper call: a host clock around many
+    calls with no synchronize inside the window (the device's queue holds
+    them; where the device is the slower side the queue fills and this
+    reads the device instead)."""
+    import torch
+
+    for i in range(3):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / iters
+
+
+def timed(fn, args_list, iters: int = 200) -> dict:
+    """kernel_ms (events around the eager loop: host dispatch included where
+    the host is the slower side), device_ms (graph replay) and host_us."""
+    return {"ms": cuda_ms(fn, args_list, iters=iters),
+            "device_ms": device_ms(fn, args_list, iters=min(iters, 100)),
+            "host_us": host_us(fn, args_list, iters=iters)}
+
+
+def _times(t: dict) -> str:
+    return (f"kernel_ms={t['ms']:.6f} device_ms={t['device_ms']:.6f} "
+            f"host_us={t['host_us']:.2f}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels vs plain
 # ---------------------------------------------------------------------------
@@ -157,14 +225,24 @@ def check_quantize(dev, records):
         print(f"  hif4_quantize {label}: bitwise equal to the plain version")
     m, k = 8, 1024
     xs = [torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev) for _ in range(8)]
-    ms = cuda_ms(hif4_quantize, [(x,) for x in xs], iters=200)
+    t = timed(hif4_quantize, [(x,) for x in xs])
     plain_ms = cuda_ms(absorbed_activation, [(x,) for x in xs], iters=50)
-    nbytes = m * k * 2 + m * k + m * (k // 64) * 4
-    ops = 16 * m * k                     # f32 ops per value, lower estimate
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
-    print(f"  hif4_quantize decode (8, 1024) bf16: kernel_ms={ms:.5f} "
+    bound_ms = _quantize_bound_ms(m, k)
+    print(f"  hif4_quantize decode (8, 1024) bf16 (the parent's decode path; "
+          f"now prefill and the pallas head only): {_times(t)} "
           f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} (bytes) "
           f"library_ms=n/a (no single PyTorch call)")
+    # the prefill activations of the main path (batch 8 x prompt 480)
+    m, k = 3840, 1024
+    xs = [torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev)
+          for _ in range(L2_ROTATION)]       # 24 x 7.9 MB > the 50 MB L2
+    p_t = timed(hif4_quantize, [(x,) for x in xs], iters=100)
+    p_plain_ms = cuda_ms(absorbed_activation, [(x,) for x in xs], iters=10,
+                         warmup=1)
+    p_bound_ms = _quantize_bound_ms(m, k)
+    print(f"  hif4_quantize prefill (3840, 1024) bf16: {_times(p_t)} "
+          f"plain_ms={p_plain_ms:.5f} bound_ms={p_bound_ms:.6f} (bytes)")
+    del xs
     # the pallas LM head quantizes the whole tied embedding on every call
     m, k = EMBED_SHAPE
     dg = torch.Generator(device=dev).manual_seed(16)
@@ -178,24 +256,36 @@ def check_quantize(dev, records):
                                                     ps.view(torch.int32)),
           "hif4_quantize on the embedding: rows 0-8191 differ from the plain version")
     del ki, ks, pi, ps
-    e_ms = cuda_ms(hif4_quantize, [(e,) for e in embeds], iters=20)
+    e_t = timed(hif4_quantize, [(e,) for e in embeds], iters=20)
     e_plain_ms = cuda_ms(absorbed_activation, [(e,) for e in embeds], iters=3,
                          warmup=1)
     e_bytes = m * k * 2 + m * k + m * (k // 64) * 4
-    e_bound_ms = max(e_bytes / HBM_BYTES_PER_S, 16 * m * k / F32_FLOPS_PER_S) * 1e3
+    e_bound_ms = _quantize_bound_ms(m, k)
     print(f"  hif4_quantize embedding ({m}, {k}) bf16: rows 0-8191 bitwise equal "
-          f"to the plain version; kernel_ms={e_ms:.5f} plain_ms={e_plain_ms:.5f} "
+          f"to the plain version; {_times(e_t)} plain_ms={e_plain_ms:.5f} "
           f"bound_ms={e_bound_ms:.6f} (bytes: {e_bytes} B)")
+    # the row is the main path's shape: kernel 1 launches only on the
+    # prefill activations there (the decode form quantizes in its prologue)
     records["hif4_quantize"] = {
         "name": "hif4_quantize", "route": "cuda",
         "source": "src/repro_torch/csrc/hif4_quant.cu",
         "replaces": "src/repro/kernels/hif4_quant.py:75",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-        "shape": "x (8, 1024) bf16",
-        "embedding": {"shape": f"x ({m}, {k}) bf16", "ms": e_ms,
+        "max_abs_err": worst, **p_t, "plain_ms": p_plain_ms,
+        "bound_ms": p_bound_ms, "bound_by": "bytes", "library_ms": None,
+        "shape": "x (3840, 1024) bf16 (prefill)",
+        "decode": {"shape": "x (8, 1024) bf16", **t, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": "bytes",
+                   "launches": 0},
+        "embedding": {"shape": f"x ({m}, {k}) bf16", **e_t,
                       "plain_ms": e_plain_ms, "bound_ms": e_bound_ms,
                       "bound_by": "bytes"}}
+
+
+def _quantize_bound_ms(m, k):
+    """bf16 in, int8 ints and f32 scales out, each byte once; 16 f32 ops per
+    value (a lower estimate)."""
+    nbytes = m * k * 2 + m * k + m * (k // 64) * 4
+    return max(nbytes / HBM_BYTES_PER_S, 16 * m * k / F32_FLOPS_PER_S) * 1e3
 
 
 def check_matmul(dev, records):
@@ -228,33 +318,168 @@ def check_matmul(dev, records):
                   f"{float(err.max())} beyond 1e-5 of the row abs sum")
             print(f"  fused_packed_matmul M={m} K={k} N={n}: max |d| "
                   f"{float(err.max()):.3e} (bitwise: {torch.equal(y, ref)})")
-    m, k, n = 8, 1024, 2816
+    # the prefill form on the main path's prefill shape (batch 8 x prompt
+    # 480 rows; the decode form is timed in check_decode_matmul)
+    m, k, n = 3840, 1024, 2816
     copies = []
-    for _ in range(64):              # 64 x 1.6 MB > the 50 MB L2
+    for _ in range(12):              # 12 x 1.6 MB packed + 8.3 MB of x
         w = (torch.randn(k, n, generator=gen) * 0.02).to(torch.bfloat16).to(dev)
         codes, meta = PackedW.from_dense(w).to_kernel_layout().kernel_operands()
-        copies.append((codes, meta, w))
-    x = torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev)
-    ai, asc = absorbed_activation(x)
-    ms = cuda_ms(fused_packed_matmul, [(ai, asc, c, mt) for c, mt, _ in copies], iters=200)
-    plain_ms = cuda_ms(fused_packed_matmul_plain,
-                       [(ai, asc, c, mt) for c, mt, _ in copies], iters=50)
-    library_ms = cuda_ms(torch.matmul, [(x, w) for _, _, w in copies], iters=200)
+        x = torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev)
+        copies.append((*absorbed_activation(x), codes, meta, x, w))
+    t = timed(fused_packed_matmul, [c[:4] for c in copies], iters=60)
+    plain_ms = cuda_ms(fused_packed_matmul_plain, [c[:4] for c in copies], iters=5,
+                       warmup=1)
+    library_ms = cuda_ms(torch.matmul, [c[4:] for c in copies], iters=60)
     nbytes = m * k + m * (k // 64) * 4 + k * n // 2 + (k // 64) * n * 4 + m * n * 4
     ops = 2 * m * n * k
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
-    print(f"  fused_packed_matmul decode M=8 K=1024 N=2816: kernel_ms={ms:.5f} "
-          f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} (bytes) "
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    bound_ms, bound_by = max(by_bytes, by_ops) * 1e3, (
+        "bytes" if by_bytes >= by_ops else "operations")
+    print(f"  fused_packed_matmul prefill form M={m} K={k} N={n}: {_times(t)} "
+          f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}) "
           f"library_ms={library_ms:.5f} (torch.matmul bf16 dense, not the "
           f"same function)")
     records["fused_packed_matmul"] = {
         "name": "fused_packed_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_matmul.cu",
         "replaces": "src/repro/kernels/fused_matmul.py:65",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+        "max_abs_err": worst, **t, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "library": "torch.matmul bf16 dense (M,K)x(K,N), not the same function",
-        "shape": "M=8 K=1024 N=2816"}
+        "shape": f"M={m} K={k} N={n} (prefill form)"}
+
+
+# qwen1.5-0.5b's decode linears (K, N): wq wk wv wo, wg wu, the MLP's wo;
+# and how many of a layer's 7 linears take each
+DECODE_SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024))
+DECODE_SITES = {(1024, 1024): 4, (1024, 2816): 2, (2816, 1024): 1}
+
+
+def _decode_bound_ms(m, k, n, x_bytes=2, out_bytes=2):
+    """x read, the packed weight (codes + meta words) read and the output
+    written once each; 2 M N K int8 operations."""
+    nbytes = m * k * x_bytes + k * n // 2 + (k // 64) * n * 4 + m * n * out_bytes
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / INT8_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations"), nbytes
+
+
+def check_decode_matmul(dev, records):
+    """The decode form of kernel 2 with kernel 1 as its prologue: bitwise
+    equal to its plain version (the pair, then the cast) at the three decode
+    shapes, M in {1, 8, 16, 32}, bf16 and f32 in and out, and at a ragged
+    shape; bitwise equal to kernel 5 on packed_to_absorbed(pw) fed kernel
+    1's ints; a NaN meta word confined to its column; then timed at M=8
+    bf16 (the main path) beside the pair it replaces (kernel 1, kernel 2,
+    the cast), and at M=32 K=2816 (the largest prologue)."""
+    import torch
+    from repro_torch.core.engine import packed_to_absorbed
+    from repro_torch.core.qlinear import PackedW
+    from repro_torch.kernels.bfp_matmul import bfp_matmul_quantized
+    from repro_torch.kernels.fused_matmul import (
+        decode_plan, fused_decode_matmul, fused_decode_matmul_plain,
+        fused_packed_matmul)
+    from repro_torch.kernels.hif4_quant import hif4_quantize
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    def packed(k, n):
+        w = (torch.randn(k, n, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        return PackedW.from_dense(w).to_kernel_layout(), w
+
+    cases, worst = 0, 0.0
+    for k, n in DECODE_SHAPES + ((320, 1000), (1024, 1040)):
+        pw, _ = packed(k, n)
+        for m in (1, 8, 16, 32):
+            xf = torch.randn(m, k, generator=gen, device=dev) * torch.exp2(
+                torch.empty(m, k // 64, 1, device=dev).uniform_(
+                    -10, 10, generator=gen)).repeat_interleave(64, 1).reshape(m, k)
+            for din, dout in ((a, b) for a in dts for b in dts):
+                x = xf.to(dts[din])
+                y = fused_decode_matmul(x, pw.codes, pw.meta, dts[dout])
+                ref = fused_decode_matmul_plain(x, pw.codes, pw.meta, dts[dout])
+                torch.cuda.synchronize()
+                worst = max(worst, float((y.float() - ref.float()).abs().max()))
+                check(torch.equal(bits(y), bits(ref)),
+                      f"fused_decode_matmul M={m} K={k} N={n} {din}->{dout}: not "
+                      f"bitwise equal to the plain version at "
+                      f"{int((bits(y) != bits(ref)).sum())} outputs")
+                cases += 1
+        x = torch.randn(8, k, generator=gen, device=dev).to(torch.bfloat16)
+        y = fused_decode_matmul(x, pw.codes, pw.meta, torch.float32)
+        ai, asc = hif4_quantize(x)
+        y5 = bfp_matmul_quantized(ai, asc, *packed_to_absorbed(pw))
+        torch.cuda.synchronize()
+        check(torch.equal(bits(y), bits(y5)), f"fused_decode_matmul K={k} N={n}: "
+              f"not bitwise equal to bfp_matmul_quantized on packed_to_absorbed")
+        plan = decode_plan(8, k, n)
+        print(f"  fused_decode_matmul K={k} N={n}: bitwise equal to the plain "
+              f"version (M 1, 8, 16, 32; bf16/f32 in and out) and to "
+              f"bfp_matmul_quantized on packed_to_absorbed; plan at M=8: "
+              f"{plan.grid} CTAs in clusters of {plan.split}, "
+              f"{plan.smem_bytes} B shared")
+    pw, _ = packed(1024, 1000)
+    meta = pw.meta.clone()
+    meta[5, 997] |= -(1 << 24)                        # E6M2 code 0xFF
+    x = torch.randn(8, 1024, generator=gen, device=dev).to(torch.bfloat16)
+    y = fused_decode_matmul(x, pw.codes, meta)
+    want = torch.zeros_like(y, dtype=torch.bool)
+    want[:, 997] = True
+    torch.cuda.synchronize()
+    check(torch.equal(y.isnan(), want), "fused_decode_matmul: a NaN meta word "
+          "reached outputs outside its column")
+    print(f"  fused_decode_matmul: {cases} cases bitwise; NaN meta -> its "
+          f"column only")
+
+    def pair(x, codes, meta):
+        return fused_packed_matmul(*hif4_quantize(x), codes, meta).to(x.dtype)
+
+    shapes = []
+    for m, k, n in [(8, k, n) for k, n in DECODE_SHAPES] + [(32, 2816, 1024)]:
+        rot = -(-60 * 2 ** 20 // (k * n * 9 // 16))  # packed copies > 50 MB L2
+        ws = [packed(k, n) for _ in range(rot)]
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        args = [(x, pw.codes, pw.meta) for pw, _ in ws]
+        t = timed(fused_decode_matmul, args)
+        old = timed(pair, args)
+        plain_ms = cuda_ms(fused_decode_matmul_plain, args, iters=10, warmup=1)
+        library_ms = cuda_ms(torch.matmul, [(x, w) for _, w in ws], iters=200)
+        bound_ms, bound_by, nbytes = _decode_bound_ms(m, k, n)
+        plan = decode_plan(m, k, n)
+        print(f"  fused_decode_matmul M={m} K={k} N={n} bf16: {_times(t)} "
+              f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}: "
+              f"{nbytes} B) library_ms={library_ms:.5f} (torch.matmul bf16 "
+              f"dense, not the same function); the pair it replaces (kernel 1, "
+              f"kernel 2, cast): {_times(old)}; {plan.grid} CTAs")
+        shapes.append({"shape": f"M={m} K={k} N={n} bf16", "k_n": (k, n),
+                       **t, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": library_ms,
+                       "pair": old, "ctas": plan.grid, "split": plan.split})
+        del ws, args
+    # the row: means over the main path's three shapes at M=8, weighted by
+    # their launches (4 : 2 : 1 per layer), so that launches x (ms -
+    # bound_ms) is the main path's total; phase serve adds each shape's
+    # launches
+    sites = [DECODE_SITES[tuple(sh["k_n"])] for sh in shapes[:3]]
+    records["fused_decode_matmul"] = {
+        "name": "fused_decode_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_decode_matmul.cu",
+        "replaces": "src/repro/kernels/fused_matmul.py:65",
+        "prologue_replaces": "src/repro/kernels/hif4_quant.py:75",
+        "max_abs_err": worst, **{key: sum(w * sh[key] for w, sh in zip(
+            sites, shapes)) / sum(sites) for key in (
+            "ms", "device_ms", "host_us", "plain_ms", "bound_ms",
+            "library_ms")},
+        "bound_by": "bytes" if all(sh["bound_by"] == "bytes"
+                                   for sh in shapes[:3]) else "operations",
+        "library": "torch.matmul bf16 dense (M,K)x(K,N), not the same function",
+        "shape": "M=8 bf16 at (K, N) (1024, 1024), (1024, 2816), (2816, "
+                 "1024), launch-weighted 4:2:1", "shapes": shapes}
 
 
 def _lm_head_operands(m, k, n, gen, dev):
@@ -341,33 +566,29 @@ def check_bfp_matmul(dev, records):
     print("  bfp_matmul_quantized: NaN a_scale -> its row only, NaN b_scale -> "
           "its column only")
 
-    timed = {}
+    rows = {}
     for m, k, n, copies in ((8, d, vocab, 3), (3840, 1024, 2816, 8)):
         ops = [_lm_head_operands(m, k, n, gen, dev) for _ in range(copies)]
         args = [o[:4] for o in ops]
-        ms = cuda_ms(bfp_matmul_quantized, args, iters=30)
+        t = timed(bfp_matmul_quantized, args, iters=30)
         plain_ms = cuda_ms(bfp_matmul_quantized_plain, args, iters=5, warmup=1)
         library_ms = cuda_ms(torch.matmul, [(o[4], o[5].T) for o in ops], iters=30)
         bound_ms, bound_by, nbytes = _group_matmul_bound_ms(m, k, n)
-        timed[m] = (ms, plain_ms, library_ms, bound_ms, bound_by)
-        print(f"  bfp_matmul_quantized M={m} K={k} N={n}: kernel_ms={ms:.5f} "
+        rows[m] = dict(t, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+        print(f"  bfp_matmul_quantized M={m} K={k} N={n}: {_times(t)} "
               f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}: "
               f"{nbytes} B) library_ms={library_ms:.5f} (torch.matmul bf16 "
               f"dense, not the same function)")
         del ops, args
-    ms, plain_ms, library_ms, bound_ms, bound_by = timed[8]
-    p_ms, p_plain_ms, p_library_ms, p_bound_ms, p_bound_by = timed[3840]
     records["bfp_matmul_quantized"] = {
         "name": "bfp_matmul_quantized", "route": "cuda",
         "source": "src/repro_torch/csrc/bfp_matmul.cu",
         "replaces": "src/repro/kernels/bfp_matmul.py:101",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "max_abs_err": worst, **rows[8],
         "library": "torch.matmul bf16 dense (M,K)x(K,N), not the same function",
         "shape": f"M=8 K={d} N={vocab} (the pallas LM head)",
-        "prefill": {"shape": "M=3840 K=1024 N=2816", "ms": p_ms,
-                    "plain_ms": p_plain_ms, "bound_ms": p_bound_ms,
-                    "bound_by": p_bound_by, "library_ms": p_library_ms}}
+        "prefill": {"shape": "M=3840 K=1024 N=2816", **rows[3840]}}
 
 
 def _packed_cache(b, s, hkv, d, gen, dev):
@@ -425,8 +646,8 @@ def check_attention(dev, records):
     q = (torch.randn(B, hkv, d, generator=gen) * 0.5).to(torch.bfloat16).to(dev)
     length = torch.full((B,), cap, dtype=torch.int32, device=dev)
     args = [(q, pk, pv, length) for pk, pv in caches]
-    ms = cuda_ms(lambda *a: fused_decode_attention(*a, n_kv_heads=hkv, d_head=d),
-                 args, iters=100)
+    t = timed(lambda *a: fused_decode_attention(*a, n_kv_heads=hkv, d_head=d),
+              args, iters=100)
     plain_ms = cuda_ms(lambda *a: fused_decode_attention_plain(*a, hkv, d), args,
                        iters=20)
     dense = [(q[:, :, None], kvcache.dequantize_kv(pk, hkv, d).transpose(1, 2),
@@ -435,15 +656,15 @@ def check_attention(dev, records):
     nbytes = 2 * kvcache.packed_kv_nbytes(caches[0][0]) + 2 * q.numel() * 2 + B * 4
     ops = 4 * B * hkv * cap * d
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S) * 1e3
-    print(f"  fused_decode_attention decode B=8 Hkv=16 D=64 S=512: kernel_ms="
-          f"{ms:.5f} plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} (bytes) "
+    print(f"  fused_decode_attention decode B=8 Hkv=16 D=64 S=512: {_times(t)} "
+          f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} (bytes) "
           f"library_ms={library_ms:.5f} (scaled_dot_product_attention on the "
           f"dequantized bf16 K/V, not the same function)")
     records["fused_decode_attention"] = {
         "name": "fused_decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_attention.cu",
         "replaces": "src/repro/kernels/fused_attention.py:176",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": worst, **t, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
         "library": "scaled_dot_product_attention on dequantized bf16 K/V, "
                    "not the same function",
@@ -579,8 +800,8 @@ def check_paged_attention(dev, records):
     args = [(q, kp, vp, table, length) for kp, vp in pools]
     worst = max(worst, _compare_paged(*args[0], hkv, d, P,
                                       "timed shape B=8 Hkv=16 D=64 P=64 max_pages=8"))
-    ms = cuda_ms(lambda *a: fused_paged_decode_attention(*a, n_kv_heads=hkv, d_head=d),
-                 args, iters=100)
+    t = timed(lambda *a: fused_paged_decode_attention(*a, n_kv_heads=hkv, d_head=d),
+              args, iters=100)
     plain_ms = cuda_ms(lambda *a: fused_paged_decode_attention_plain(*a, hkv, d),
                        args, iters=20)
     dense = []
@@ -597,7 +818,7 @@ def check_paged_attention(dev, records):
     ops = 4 * B * hkv * maxp * P * d
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S) * 1e3
     print(f"  fused_paged_decode_attention decode B=8 Hkv=16 D=64 P=64 "
-          f"max_pages=8: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+          f"max_pages=8: {_times(t)} plain_ms={plain_ms:.5f} "
           f"bound_ms={bound_ms:.6f} (bytes: {nbytes} B) library_ms="
           f"{library_ms:.5f} (scaled_dot_product_attention on the gathered, "
           f"dequantized bf16 K/V, not the same function)")
@@ -605,7 +826,7 @@ def check_paged_attention(dev, records):
         "name": "fused_paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_attention.cu",
         "replaces": "src/repro/kernels/fused_attention.py:312",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": worst, **t, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
         "library": "scaled_dot_product_attention on gathered, dequantized "
                    "bf16 K/V, not the same function",
@@ -683,8 +904,11 @@ def phase_serve(dev, seed, records):
     check(tuple(toks.shape) == (batch, new), f"tokens shape {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token ids out of range")
     sites = 7                                 # wq wk wv wo wg wu wo per layer
-    want = {"hif4_quantize": cfg.n_layers * sites * (1 + steps),
+    # prefill (M = 3840 rows): kernel 1, then kernel 2's prefill form; each
+    # decode step (M = 8): one launch of the decode form per linear
+    want = {"hif4_quantize": cfg.n_layers * sites,
             "fused_packed_matmul": cfg.n_layers * sites * (1 + steps),
+            "fused_decode_matmul": cfg.n_layers * sites * steps,
             "fused_decode_attention": cfg.n_layers * steps,
             "fused_paged_decode_attention": 0, "bfp_matmul_quantized": 0}
     print(f"  launches on the main path: {launches} (expected {want})")
@@ -692,6 +916,14 @@ def phase_serve(dev, seed, records):
     for name, n in launches.items():
         if n:
             records.setdefault(name, {})["launches"] = n
+    for sh in records["fused_decode_matmul"].get("shapes", []):
+        sh["launches"] = (cfg.n_layers * steps * DECODE_SITES[tuple(sh["k_n"])]
+                          if sh["shape"].startswith("M=8 ") else 0)
+    # the kernel 2 row is its prefill form; both forms count under its name
+    records["fused_packed_matmul"]["launches"] = (
+        launches["fused_packed_matmul"] - launches["fused_decode_matmul"])
+    records["fused_packed_matmul"]["launches_both_forms"] = launches[
+        "fused_packed_matmul"]
     print(f"  request 0: {toks[0].tolist()}")
 
 
@@ -746,8 +978,9 @@ def phase_pallas(dev, seed, records):
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token ids out of range")
     calls = 1 + steps                         # LM-head calls: prefill + decode
     sites = 7
-    want = {"hif4_quantize": cfg.n_layers * sites * calls + 2 * calls,
+    want = {"hif4_quantize": cfg.n_layers * sites + 2 * calls,
             "fused_packed_matmul": cfg.n_layers * sites * calls,
+            "fused_decode_matmul": cfg.n_layers * sites * steps,
             "fused_decode_attention": cfg.n_layers * steps,
             "fused_paged_decode_attention": 0,
             "bfp_matmul_quantized": calls}
@@ -755,6 +988,8 @@ def phase_pallas(dev, seed, records):
     check(launches == want, f"launch counts {launches} != expected {want}")
     records.setdefault("bfp_matmul_quantized", {})["launches"] = launches[
         "bfp_matmul_quantized"]
+    if "hif4_quantize" in records:   # one per head call (0 on the serve path)
+        records["hif4_quantize"]["embedding"]["launches_pallas"] = calls
     print(f"  request 0: {toks[0].tolist()}")
     _check_tokens_vary("pallas", toks)
 
@@ -857,14 +1092,16 @@ def plain_versions():
     from repro_torch.kernels import ops
     from repro_torch.kernels.bfp_matmul import bfp_matmul_quantized_plain
     from repro_torch.kernels.fused_attention import fused_decode_attention_plain
-    from repro_torch.kernels.fused_matmul import fused_packed_matmul_plain
+    from repro_torch.kernels.fused_matmul import (
+        fused_decode_matmul_plain, fused_packed_matmul_plain)
     from repro_torch.kernels.hif4_quant import absorbed_activation
 
     saved = (engine.hif4_quantize, engine.fused_packed_matmul,
-             engine.fused_decode_attention, ops.hif4_quantize,
-             ops.bfp_matmul_quantized)
+             engine.fused_decode_matmul, engine.fused_decode_attention,
+             ops.hif4_quantize, ops.bfp_matmul_quantized)
     engine.hif4_quantize = ops.hif4_quantize = absorbed_activation
     engine.fused_packed_matmul = fused_packed_matmul_plain
+    engine.fused_decode_matmul = fused_decode_matmul_plain
     engine.fused_decode_attention = (
         lambda q, k, v, length, *, n_kv_heads, d_head, block_kv=None:
         fused_decode_attention_plain(q, k, v, length, n_kv_heads, d_head,
@@ -874,8 +1111,8 @@ def plain_versions():
         yield
     finally:
         (engine.hif4_quantize, engine.fused_packed_matmul,
-         engine.fused_decode_attention, ops.hif4_quantize,
-         ops.bfp_matmul_quantized) = saved
+         engine.fused_decode_matmul, engine.fused_decode_attention,
+         ops.hif4_quantize, ops.bfp_matmul_quantized) = saved
 
 
 # card vs CPU: the largest share of prefill logits outside rtol=0.05,
@@ -926,7 +1163,8 @@ def phase_e2e(dev, seed):
         build.reset_launches()
         run("card", dev)
         ran = {k for k, n in build.LAUNCHES.items() if n}
-        want = {"hif4_quantize", "fused_packed_matmul", "fused_decode_attention"}
+        want = {"hif4_quantize", "fused_packed_matmul", "fused_decode_matmul",
+                "fused_decode_attention"}
         if policy == "head":
             want.add("bfp_matmul_quantized")
         check(ran == want, f"the card run launched {build.LAUNCHES}")
@@ -1073,8 +1311,9 @@ def phase_paged(dev, seed, records):
     by request against a solo serve at attn_kv_block = P."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.core import kvcache
+    from repro_torch.core import engine, kvcache
     from repro_torch.kernels import build
+    from repro_torch.kernels.bfp_matmul import DECODE_M_MAX
     from repro_torch.models import lm
     from repro_torch.runtime import serve_loop
     from repro_torch.runtime.serve_loop import (
@@ -1122,9 +1361,16 @@ def phase_paged(dev, seed, records):
         counts["steps"] += args[4]
         return out
 
+    linear, rows = engine._fused_packed_matmul, []
+
+    def recording_linear(x, w, ectx):
+        rows.append(x.numel() // x.shape[-1])
+        return linear(x, w, ectx)
+
     serve_requests(cfg, sparams, reqs[:1], ctx,
                    dataclasses.replace(sc, max_new_tokens=2), device=dev)  # warm-up
     serve_loop._pool_copy, serve_loop._decode_chunk = counting_copy, timed_chunk
+    engine._fused_packed_matmul = recording_linear
     try:
         torch.cuda.synchronize()
         build.reset_launches()
@@ -1137,6 +1383,7 @@ def phase_paged(dev, seed, records):
         launches = dict(build.LAUNCHES)
     finally:
         serve_loop._pool_copy, serve_loop._decode_chunk = copy, chunk_fn
+        engine._fused_packed_matmul = linear
     steps = counts["steps"]
     print(f"  paged run: {wall:.2f} s wall, {counts['chunks']} chunks of "
           f"{t['decode_chunk']} decode steps ({steps} steps), "
@@ -1160,8 +1407,18 @@ def phase_paged(dev, seed, records):
           and launches["fused_decode_attention"] == 0,
           f"paged run launches {launches}")
     check({k for k, n in launches.items() if n} == {
-        "hif4_quantize", "fused_packed_matmul", "fused_paged_decode_attention"},
-        f"paged run launched {launches}")
+        "hif4_quantize", "fused_packed_matmul", "fused_decode_matmul",
+        "fused_paged_decode_attention"}, f"paged run launched {launches}")
+    # every packed linear of at most DECODE_M_MAX rows is one launch of the
+    # decode form; a longer one (a prompt's prefill) kernel 1, then kernel 2
+    decode = sum(r <= DECODE_M_MAX for r in rows)
+    want = {"hif4_quantize": len(rows) - decode, "fused_packed_matmul": len(rows),
+            "fused_decode_matmul": decode}
+    got = {k: launches[k] for k in want}
+    print(f"  packed linears in the paged run: {len(rows)} ({decode} of at most "
+          f"{DECODE_M_MAX} rows, rows {sorted(set(rows))}); launches {got} "
+          f"(expected {want})")
+    check(got == want, f"paged run: launches {got} != expected {want}")
     records.setdefault("fused_paged_decode_attention", {})["launches"] = launches[
         "fused_paged_decode_attention"]
     solo_ctx = dataclasses.replace(ctx, attn_kv_block=P)
@@ -1211,6 +1468,7 @@ def main(argv=None) -> int:
     records: dict = {}
     phases = [("kernels", lambda: (check_quantize(dev, records),
                                    check_matmul(dev, records),
+                                   check_decode_matmul(dev, records),
                                    check_attention(dev, records),
                                    check_paged_attention(dev, records),
                                    check_bfp_matmul(dev, records))),
@@ -1238,8 +1496,9 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print(f"FAILED: {type(e).__name__}: {e}")
         return 1
-    names = ["hif4_quantize", "fused_packed_matmul", "fused_decode_attention",
-             "fused_paged_decode_attention", "bfp_matmul_quantized"]
+    names = ["hif4_quantize", "fused_packed_matmul", "fused_decode_matmul",
+             "fused_decode_attention", "fused_paged_decode_attention",
+             "bfp_matmul_quantized"]
     print(f"kernels: {json.dumps(names)}")
     if not only:
         print(json.dumps({"kernels": [dict(records[n], kernel_ms=records[n]["ms"])

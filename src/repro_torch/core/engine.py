@@ -7,9 +7,12 @@ packed-KV decode attention (port of ``repro/core/engine.py``).
   packed — the weight is a resident :class:`PackedW` (0.5625 B/value) and is
            contracted by the fused packed matmul: activations are quantized
            by ``hif4_quantize`` and the kernel expands the 4.5-bit payload
-           in shared memory. On CUDA tensors the two CUDA kernels always
-           launch; on CPU tensors their plain versions run, with the
-           reference's off-TPU size cap (above it: dequantize-then-dot).
+           in shared memory. On CUDA tensors with at most ``DECODE_M_MAX``
+           rows (decode) one launch does both (``fused_decode_matmul``,
+           kernel 1 as the prologue of kernel 2's decode form); with more
+           rows the two CUDA kernels launch. On CPU tensors their plain
+           versions run, with the reference's off-TPU size cap (above it:
+           dequantize-then-dot).
   pallas — on a PackedW the same fused path as ``packed``; on a dense weight
            both operands are quantized by ``hif4_quantize`` on every call and
            contracted by ``bfp_matmul_quantized`` (kernels 1 and 5 on CUDA
@@ -55,8 +58,16 @@ from repro_torch.kernels.fused_attention import (
     select_kv_block,
 )
 from repro_torch.kernels import ops
-from repro_torch.kernels.bfp_matmul import cuda_tiles, select_block_sizes
-from repro_torch.kernels.fused_matmul import fused_packed_matmul
+from repro_torch.kernels.bfp_matmul import (
+    DECODE_M_MAX,
+    cuda_tiles,
+    select_block_sizes,
+)
+from repro_torch.kernels.fused_matmul import (
+    decode_plan,
+    fused_decode_matmul,
+    fused_packed_matmul,
+)
 from repro_torch.kernels.hif4_quant import hif4_quantize
 
 
@@ -160,6 +171,9 @@ def _fused_packed_matmul(x, w: PackedW, ectx: EngineCtx):
         if part_bytes > _PLAIN_FUSED_PART_BYTES_MAX:
             return _packed_matmul(x, w, ectx, contract_x=-1, accum_dtype=None)
     codes_km, meta_km = w.kernel_operands()
+    if x2.is_cuda and x2.shape[0] <= DECODE_M_MAX:
+        y = fused_decode_matmul(x2.contiguous(), codes_km, meta_km, out_dtype)
+        return y.reshape(lead + (n,))
     ai, asc = hif4_quantize(x2.contiguous())
     y = fused_packed_matmul(ai, asc, codes_km, meta_km)
     return y.reshape(lead + (n,)).to(out_dtype)
@@ -169,22 +183,38 @@ def packed_dispatch_info(quant: QuantConfig, w: PackedW, *, decode_m: int,
                          prefill_m: int, device) -> dict:
     """What the engine will run for ``w`` under ``quant`` on ``device`` — the
     launcher prints it next to the residency lines. ``*_blocks`` are the
-    reference's per-regime tiles, ``*_tiles`` the CUDA kernel's (BM, BN,
-    groups per step)."""
+    reference's per-regime tiles. ``*_kernel`` names the CUDA kernel each
+    regime launches and what its ``*_tiles`` tuple holds: the decode form's
+    launch plan (rows, column tile, CTAs splitting K) for at most
+    ``DECODE_M_MAX`` rows, else the prefill form's tiles (BM, BN, groups per
+    step)."""
     k, n = w.shape2d
     probe = torch.empty((decode_m, k), dtype=torch.bfloat16, device="meta")
     none = {"decode_blocks": None, "prefill_blocks": None,
-            "decode_tiles": None, "prefill_tiles": None}
+            "decode_kernel": None, "decode_tiles": None,
+            "prefill_kernel": None, "prefill_tiles": None}
     if not _fused_packed_ok(quant, probe, -1, w):
         return {"fused": False, "execution": "dequantize-then-dot fallback", **none}
     if torch.device(device).type != "cuda":
         return {"fused": True,
                 "execution": "plain PyTorch fused contraction (CPU)", **none}
+    decode_kernel, decode_tiles = _cuda_plan(decode_m, k, n)
+    prefill_kernel, prefill_tiles = _cuda_plan(prefill_m, k, n)
     return {"fused": True, "execution": "CUDA fused kernel",
             "decode_blocks": select_block_sizes(decode_m, n, k),
             "prefill_blocks": select_block_sizes(prefill_m, n, k),
-            "decode_tiles": cuda_tiles(decode_m),
-            "prefill_tiles": cuda_tiles(prefill_m)}
+            "decode_kernel": decode_kernel, "decode_tiles": decode_tiles,
+            "prefill_kernel": prefill_kernel, "prefill_tiles": prefill_tiles}
+
+
+def _cuda_plan(m: int, k: int, n: int) -> tuple:
+    """(the kernel :func:`_fused_packed_matmul` launches for ``m`` rows on
+    CUDA tensors, with what its tiles tuple holds; the tiles)."""
+    if m <= DECODE_M_MAX:
+        plan = decode_plan(m, k, n)
+        return ("fused_decode_matmul (M, BN, K split)",
+                (m, plan.tile_n, plan.split))
+    return "fused_packed_matmul (BM, BN, groups)", cuda_tiles(m)
 
 
 # ---------------------------------------------------------------------------

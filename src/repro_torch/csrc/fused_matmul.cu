@@ -9,7 +9,10 @@
 //
 // What bounds it on the H100: in decode (M = batch <= 32) the bytes of the
 // packed weight (0.5625 B/value), far below the int8 ops-per-byte balance;
-// in prefill (M = batch x prompt) the integer operations.
+// in prefill (M = batch x prompt) the integer operations. The engine's decode
+// linears take the decode form instead (fused_decode_matmul.cu: kernel 1
+// folded in, one launch); this entry point's decode regime serves callers
+// that hand it quantized activations.
 //
 // The CTA body is group_matmul.cuh's, shared with kernel 5; this file adds
 // the B-tile loader that expands the weight's code bytes and meta words to

@@ -9,8 +9,13 @@
 // for GPI groups from g0 on, the B columns n0..n0+BN-1 as absorbed int8
 // words (K contiguous per column) into s_b and their scales into s_bs; kernel
 // 2's loader expands 4.5-bit codes + meta words, kernel 5's reads int8 words
-// and f32 scales. One body means kernel 5 on the absorbed expansion of a
-// packed weight is bitwise kernel 2 on it.
+// and f32 scales. Kernel 5 on the absorbed expansion of a packed weight is
+// bitwise kernel 2 on it, in either of kernel 2's forms, because all three
+// compute each output in one order: exact int32 group dots, then
+// (dot * a_scale) * b_scale rounded to f32, summed in group order from 0.0f
+// with no contracted multiply-add. Here one CTA body gives it; the decode
+// form (fused_decode_matmul.cu: its own body, kernel 1 as its prologue)
+// keeps the same order per output.
 //
 // One CTA per (BM x BN) output tile walks the whole K axis in a loop (the
 // TPU's sequential K grid axis with its revisited output block becomes

@@ -8,103 +8,69 @@
 // 1 B + 4/64 B per value with a few dozen flops each, far below the card's
 // ops-per-byte balance; at decode shapes (M = batch) it is launch-bound.
 //
-// Design: one warp per 64-group, two neighbouring elements per lane, so a
-// warp reads one contiguous 128 B (bf16) line and writes 64 B. The three-level
-// tree max of Algorithm 1 is three warp-shuffle levels (lane pairs = the 4
-// elements of an E1_16 block, lane quads = the 8 of an E1_8 block, the whole
-// warp = the group). The per-group metadata is computed redundantly by every
-// lane (no shared memory, no barrier). Every bf16 step of the reference is an
-// explicit __float2bfloat16_rn, the reciprocal is an IEEE division, rounding
-// is rintf (half to even), and the micro-exponent scales are the exact
-// constants 1, 0.5 and 0.25, so the output is bitwise the reference's.
+// Design: 8 lanes per 64-group (each lane one E1_8 block of 8 elements, 4
+// groups per warp), so a lane reads 16 bytes (bf16) and writes 8, and a warp
+// reads 512 contiguous bytes. The group's arithmetic is hif4_quantize_group
+// (hif4_common.cuh), which the decode form of kernel 2
+// (fused_decode_matmul.cu) runs as its prologue: the per-group metadata is
+// computed redundantly by the group's 8 lanes (no shared memory, no
+// barrier), and the output is bitwise the reference's. An input that is not
+// 16-byte aligned takes element loads instead of vector loads.
 #include "hif4_common.cuh"
 
 namespace {
 
-constexpr float kRecip7Bf16 = 0.142578125f;  // (1/7) rounded to bf16
-constexpr float kE6m2Max = 49152.0f;                 // 2^15 * 1.5
-constexpr int kThreads = 256;                        // 8 groups per block
+constexpr int kThreads = 256;  // 32 groups per block
 
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a,
-                                      float& b) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  a = __low2float(v);
-  b = __high2float(v);
+__device__ __forceinline__ float to_float(__nv_bfloat16 h) {
+  return __bfloat162float(h);
 }
 
-__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  a = v.x;
-  b = v.y;
-}
+__device__ __forceinline__ float to_float(float f) { return f; }
 
-// round_e6m2 (rounding.py): clamp to [2^-48, 1.5*2^15] on the E6M2 grid.
-// ax >= 2^-48 is a normal float, so its exponent field is frexp's exponent-1.
-__device__ __forceinline__ float round_e6m2(float x) {
-  const float kE6m2Min = pow2i(-48);
-  const float ax = nan_max(fabsf(x), kE6m2Min);
-  int eb = static_cast<int>((__float_as_uint(ax) >> 23) & 0xFFu) - 127;
-  eb = min(max(eb, -48), 15);
-  const float quantum = pow2i(eb - 2);
-  const float q = rintf(__fdiv_rn(ax, quantum)) * quantum;
-  return nan_min(nan_max(q, kE6m2Min), kE6m2Max);
-}
-
-__device__ __forceinline__ int8_t absorb(float v, float rec, float shift_scale,
-                                         int shift) {
-  const float scaled = rbf(v * rec) * shift_scale;
-  const float q = fminf(fmaxf(rintf(scaled * 4.0f), -7.0f), 7.0f);
-  return static_cast<int8_t>(static_cast<int>(q) * (1 << shift));
-}
-
-template <typename T>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     hif4_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ ints,
                          float* __restrict__ scales, long long n_groups) {
-  const long long grp =
-      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  if (grp >= n_groups) return;  // the whole warp leaves together
-  const int lane = threadIdx.x & 31;
-
-  float x0, x1;
-  load2(x + grp * 64 + 2 * lane, x0, x1);
-
-  // Stage 1: tree max (lines 1-7)
-  float v16 = nan_max(fabsf(x0), fabsf(x1));
-  v16 = nan_max(v16, __shfl_xor_sync(HIF4_FULL_MASK, v16, 1));
-  const float v8 = nan_max(v16, __shfl_xor_sync(HIF4_FULL_MASK, v16, 2));
-  float vmax = v8;
+  const long long grp = static_cast<long long>(blockIdx.x) * (kThreads / 8) +
+                        threadIdx.x / 8;
+  if (grp - threadIdx.x % 32 / 8 >= n_groups) return;  // the whole warp
+  const int blk = threadIdx.x % 8;                     // E1_8 block
+  const bool live = grp < n_groups;
+  const T* p = x + grp * 64 + 8 * blk;
+  float v[8];
+  if (!live) {
 #pragma unroll
-  for (int o = 4; o < 32; o <<= 1)
-    vmax = nan_max(vmax, __shfl_xor_sync(HIF4_FULL_MASK, vmax, o));
-
-  // Stage 2: hierarchical scaling metadata (lines 8-14)
-  const float sf = rbf(rbf(vmax) * kRecip7Bf16);
-  const float e6m2 = round_e6m2(sf);
-  const float rec = rbf(__fdiv_rn(1.0f, e6m2));
-  const int e1_8 = rbf(v8 * rec) > 4.0f ? 1 : 0;
-  const float t16 = rbf(v16 * rec) * (e1_8 ? 0.5f : 1.0f);
-  const int e1_16 = t16 >= 2.0f ? 1 : 0;
-
-  // Stage 3: scale, round to S1P2 quarters, absorb shifts (lines 15-18)
-  const int shift = e1_8 + e1_16;
-  const float shift_scale = shift == 0 ? 1.0f : (shift == 1 ? 0.5f : 0.25f);
-  char2 out;
-  out.x = absorb(x0, rec, shift_scale, shift);
-  out.y = absorb(x1, rec, shift_scale, shift);
-  *reinterpret_cast<char2*>(ints + grp * 64 + 2 * lane) = out;
-  if (lane == 0) scales[grp] = e6m2 * 0.25f;
+    for (int i = 0; i < 8; ++i) v[i] = 0.0f;
+  } else if (kVec) {
+    load8(p, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = to_float(p[i]);
+  }
+  float scale;
+  const uint2 out = hif4_quantize_group(v, scale);
+  if (!live) return;
+  *reinterpret_cast<uint2*>(ints + grp * 64 + 8 * blk) = out;
+  if (blk == 0) scales[grp] = scale;
 }
 
 template <typename T>
 int launch(const void* x, void* ints, void* scales, long long n_groups,
            void* stream) {
   if (n_groups <= 0) return 0;
-  const long long blocks = (n_groups + kThreads / 32 - 1) / (kThreads / 32);
-  hif4_quantize_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<int8_t*>(ints),
-      static_cast<float*>(scales), n_groups);
+  const long long blocks = (n_groups + kThreads / 8 - 1) / (kThreads / 8);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  if (reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    hif4_quantize_kernel<T, true><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                    s>>>(xt, static_cast<int8_t*>(ints),
+                                         static_cast<float*>(scales), n_groups);
+  else
+    hif4_quantize_kernel<T, false><<<static_cast<unsigned>(blocks), kThreads,
+                                     0, s>>>(xt, static_cast<int8_t*>(ints),
+                                             static_cast<float*>(scales),
+                                             n_groups);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,10 +14,23 @@ version: the weight expanded by ``hif4.absorbed_int_km`` (the reference's
 in-kernel unpack), then kernel 5's plain version, so kernel and plain
 version agree bitwise; :func:`fused_packed_matmul` takes it only for CPU
 tensors.
+
+The decode form (M <= ``DECODE_M_MAX`` rows) is the CUDA kernel
+``csrc/fused_decode_matmul.cu``, with kernel 1 folded in as its prologue:
+
+  x (M, K) bf16/f32, codes_km, meta_km -> (M, N) bf16/f32
+
+one launch computing bit for bit ``hif4_quantize`` -> ``fused_packed_matmul``
+-> ``.to(out_dtype)`` (:func:`fused_decode_matmul_plain`, its plain version).
+:func:`decode_plan` is its launch plan (column tile, K split across the
+CTAs of a cluster, shared bytes), which the wrapper passes to the kernel and
+the kernel checks against its own carve-up of shared memory.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -28,6 +41,7 @@ from repro_torch.kernels.bfp_matmul import (
     GROUP,
     bfp_matmul_quantized_plain,
 )
+from repro_torch.kernels.hif4_quant import absorbed_activation
 
 
 def fused_packed_matmul_plain(a_ints, a_scales, codes_km, meta_km):
@@ -81,4 +95,129 @@ def fused_packed_matmul(a_ints, a_scales, codes_km, meta_km) -> torch.Tensor:
             meta_km.data_ptr(), out.data_ptr(), M, N, K, regime,
             build.stream_ptr(dev))
     build.check("fused_matmul", "fused_packed_matmul", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the decode form, with kernel 1 as its prologue
+# ---------------------------------------------------------------------------
+
+DECODE_TILE_N = 32          # columns per CTA: 16-byte code row pieces
+DECODE_MAX_SPLIT = 8        # the largest portable thread block cluster
+_DECODE_B_STRIDE = 17       # int32 words per expanded column
+H100_SMS = 132
+SMEM_PER_CTA_MAX = 232_448  # 227 KB of dynamic shared memory per CTA
+_FLOATS = (torch.bfloat16, torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """The launch of :func:`fused_decode_matmul`: ``grid`` CTAs in clusters
+    of ``split`` that share one column tile of ``tile_n`` and split its K
+    axis, each with ``smem_bytes`` of dynamic shared memory."""
+
+    tile_n: int
+    split: int
+    grid: int
+    smem_bytes: int
+
+
+def _r16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _decode_smem_bytes(m: int, groups: int, split: int, gm: int) -> int:
+    """csrc/fused_decode_matmul.cu's ``layout``: code rows, meta words, the
+    quantized rows (two padding words each), their scales, the expanded
+    columns, and the f32 terms of the outputs whose sum the CTA owns (every
+    group's)."""
+    t = DECODE_TILE_N
+    per = -(-m * t // split)
+    return (_r16(gm * 32 * t) + _r16(gm * t * 4) + _r16(m * (gm * 16 + 2) * 4)
+            + _r16(m * gm * 4) + _r16(gm * t * _DECODE_B_STRIDE * 4)
+            + _r16(groups * per * 4))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(m: int, k: int, n: int) -> DecodePlan:
+    """Column tiles of 32; the K split doubles (up to 8 CTAs per cluster, at
+    least one 64-group each) until the grid holds two CTAs per SM of the
+    H100 (at N = 1024 the cluster of 8 stops it at 256 CTAs), and further
+    while a CTA's shared memory exceeds 227 KB."""
+    if not 1 <= m <= DECODE_M_MAX or k < GROUP or k % GROUP or n < 1:
+        raise ValueError(f"the decode form takes 1 <= M <= {DECODE_M_MAX}, "
+                         f"K % 64 == 0 and N >= 1, got (M, K, N) = {(m, k, n)}")
+    groups = k // GROUP
+    tiles = -(-n // DECODE_TILE_N)
+    split = 1
+    while (split < DECODE_MAX_SPLIT and 2 * split <= groups
+           and tiles * split < 2 * H100_SMS):
+        split *= 2
+    while True:
+        smem = _decode_smem_bytes(m, groups, split, -(-groups // split))
+        if smem <= SMEM_PER_CTA_MAX:
+            return DecodePlan(DECODE_TILE_N, split, tiles * split, smem)
+        if split == DECODE_MAX_SPLIT or 2 * split > groups:
+            raise ValueError(f"the decode form does not fit (M, K, N) = "
+                             f"{(m, k, n)} in {SMEM_PER_CTA_MAX} B of shared "
+                             f"memory per CTA")
+        split *= 2
+
+
+def fused_decode_matmul_plain(x, codes_km, meta_km, out_dtype=None):
+    """Plain version: kernel 1's and kernel 2's plain versions, then the
+    cast to ``out_dtype`` (default x.dtype)."""
+    ai, asc = absorbed_activation(x)
+    y = fused_packed_matmul_plain(ai, asc, codes_km, meta_km)
+    return y.to(out_dtype or x.dtype)
+
+
+def fused_decode_matmul(x, codes_km, meta_km, out_dtype=None) -> torch.Tensor:
+    """(M, N) in ``out_dtype`` (default x.dtype): the CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors. Counted as a launch of
+    ``fused_packed_matmul`` (kernel 2 in either form) and of
+    ``fused_decode_matmul``."""
+    out_dtype = out_dtype or x.dtype
+    if x.ndim != 2 or codes_km.ndim != 2 or meta_km.ndim != 2:
+        raise ValueError("fused_decode_matmul takes 2-D operands")
+    M, K = x.shape
+    half, N = codes_km.shape
+    if 2 * half != K or K % GROUP or meta_km.shape != (K // GROUP, N):
+        raise ValueError(f"x {tuple(x.shape)} does not match codes "
+                         f"{tuple(codes_km.shape)} / meta {tuple(meta_km.shape)}"
+                         f" (K % 64 == 0 required)")
+    if x.dtype not in _FLOATS or out_dtype not in _FLOATS:
+        raise TypeError(f"fused_decode_matmul takes and gives bf16/f32, got "
+                        f"{x.dtype} -> {out_dtype}")
+    if codes_km.dtype != torch.uint8 or meta_km.dtype != torch.int32:
+        raise TypeError(f"fused_decode_matmul: codes_km must be uint8 and "
+                        f"meta_km int32, got {codes_km.dtype}, {meta_km.dtype}")
+    if not x.device == codes_km.device == meta_km.device:
+        raise ValueError(f"fused_decode_matmul: operands on {x.device}, "
+                         f"{codes_km.device}, {meta_km.device}")
+    dev = x.device
+    if dev.type == "cpu":
+        return fused_decode_matmul_plain(x, codes_km, meta_km, out_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_decode_matmul: unsupported device {dev}")
+    if M == 0 or N == 0:
+        raise ValueError(f"fused_decode_matmul: no work for (M, K, N) = "
+                         f"{(M, K, N)}")
+    for t in (x, codes_km, meta_km):
+        if not t.is_contiguous():
+            raise ValueError("fused_decode_matmul needs contiguous operands")
+        if t.data_ptr() % 16:
+            raise ValueError("fused_decode_matmul: operands must be 16-byte "
+                             "aligned")
+    plan = decode_plan(M, K, N)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = build.function("fused_decode_matmul", "fused_decode_matmul",
+                        [p, p, p, p, i, i, i, i, i, i, i, p])
+    rc = fn(x.data_ptr(), codes_km.data_ptr(), meta_km.data_ptr(),
+            out.data_ptr(), M, N, K, plan.split, plan.smem_bytes,
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            build.stream_ptr(dev))
+    build.check("fused_decode_matmul", "fused_decode_matmul", rc)
+    build.count_launch("fused_packed_matmul")
     return out

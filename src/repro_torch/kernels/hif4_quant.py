@@ -1,7 +1,8 @@
 """Kernel 1: BF16/F32 -> HiF4 absorbed-shift ints (paper Algorithm 1).
 
 Port of the TPU Pallas kernel ``repro/kernels/hif4_quant.py::hif4_quantize``
-as the CUDA kernel ``csrc/hif4_quant.cu`` (one warp per 64-group):
+as the CUDA kernel ``csrc/hif4_quant.cu`` (8 lanes per 64-group; the same
+body is the prologue of kernel 2's decode form):
 
   x (M, K) bf16/f32, K % 64 == 0 -> ints (M, K) int8   S1P2 quarters shifted
                                                        by E1_8 + E1_16 (|q| <= 28)

@@ -116,8 +116,8 @@ def _print_kernel_dispatch(serving_params, ctx, args, device):
     k, n = pw.shape2d
     line = f"packed matmul: fused [{info['execution']}] on e.g. (K={k}, N={n})"
     if info["decode_tiles"] is not None:
-        line += (f"; tiles decode(BM,BN,groups)={info['decode_tiles']} "
-                 f"prefill={info['prefill_tiles']}")
+        line += (f"; decode {info['decode_kernel']}={info['decode_tiles']}, "
+                 f"prefill {info['prefill_kernel']}={info['prefill_tiles']}")
     print(line)
 
 

@@ -17,7 +17,12 @@ plain version. fused_paged_decode_attention within the same tolerance of
 its plain version, BITWISE equal to fused_decode_attention at
 ``block_kv = P`` on the same bytes laid out contiguously (one CTA body, two
 tile loaders), and NaN metadata in a page reaches exactly the slots whose
-tables hold that page.
+tables hold that page. The decode form of kernel 2 with kernel 1 as its
+prologue (fused_decode_matmul) BITWISE equal to its plain version (the pair
+hif4_quantize -> fused_packed_matmul, then the cast) at qwen1.5-0.5b's three
+decode shapes, M in {1, 8, 16, 32}, bf16 and f32 in and out, and to kernel 5
+on the absorbed expansion of the weight; a NaN meta word reaches only its
+column; one launch per decode linear of the engine.
 """
 import numpy as np
 import pytest
@@ -244,3 +249,101 @@ def test_bfp_matmul_refuses_empty_work(cuda):
     with pytest.raises(ValueError):
         TB.bfp_matmul_quantized(ai, asc, bi[:, :0], bsc[:, :0])
     assert build.LAUNCHES["bfp_matmul_quantized"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the decode form of kernel 2, kernel 1 as its prologue: fused_decode_matmul
+# ---------------------------------------------------------------------------
+
+DECODE_SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024)]      # (K, N)
+DT = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _packed(k, n, device, seed=18):
+    g = torch.Generator().manual_seed(seed)
+    w = (torch.randn(k, n, generator=g) * 0.02).to(torch.bfloat16).to(device)
+    return PackedW.from_dense(w).to_kernel_layout()
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("out", ["bf16", "f32"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("m", [1, 8, 16, 32])
+@pytest.mark.parametrize("k, n", DECODE_SHAPES)
+def test_decode_form_bitwise_vs_plain(cuda, k, n, m, dtype, out):
+    pw = _packed(k, n, cuda)
+    x = _act(19 + m, m, k, cuda).to(DT[dtype])
+    build.reset_launches()
+    y = TM.fused_decode_matmul(x, pw.codes, pw.meta, DT[out])
+    assert build.LAUNCHES["fused_decode_matmul"] == 1
+    assert build.LAUNCHES["fused_packed_matmul"] == 1
+    assert build.LAUNCHES["hif4_quantize"] == 0
+    ref = TM.fused_decode_matmul_plain(x, pw.codes, pw.meta, DT[out])
+    assert y.dtype == DT[out]
+    assert torch.equal(_bits(y), _bits(ref))
+
+
+@pytest.mark.parametrize("k, n", DECODE_SHAPES + [(320, 1000), (1024, 1040)])
+def test_decode_form_bitwise_vs_bfp_matmul(cuda, k, n):
+    """Kernel 5 on packed_to_absorbed(pw), fed kernel 1's ints: the same
+    bits as the decode form's f32 output (and ragged N: K/64 = 5 with
+    N % 16 != 0, and N % 16 == 0 with a partial last column tile)."""
+    pw = _packed(k, n, cuda)
+    x = _act(20, 8, k, cuda)
+    y = TM.fused_decode_matmul(x, pw.codes, pw.meta, torch.float32)
+    ai, asc = TQ.hif4_quantize(x)
+    y5 = TB.bfp_matmul_quantized(ai, asc, *engine.packed_to_absorbed(pw))
+    assert torch.equal(y.view(torch.int32), y5.view(torch.int32))
+
+
+def test_decode_form_nan_meta_reaches_only_its_column(cuda):
+    pw = _packed(1024, 1000, cuda)
+    meta = pw.meta.clone()
+    meta[5, 997] |= -(1 << 24)                        # E6M2 code 0xFF
+    x = _act(21, 8, 1024, cuda)
+    y = TM.fused_decode_matmul(x, pw.codes, meta)
+    want = torch.zeros_like(y, dtype=torch.bool)
+    want[:, 997] = True
+    assert torch.equal(y.isnan(), want)
+    assert torch.equal(y.isnan(), TM.fused_decode_matmul_plain(
+        x, pw.codes, meta).isnan())
+
+
+def test_decode_form_refuses_bad_operands(cuda):
+    pw = _packed(256, 64, cuda)
+    x = _act(22, 8, 256, cuda)
+    build.reset_launches()
+    with pytest.raises(ValueError):                   # empty work
+        TM.fused_decode_matmul(x[:0], pw.codes, pw.meta)
+    with pytest.raises(ValueError):                   # non-contiguous
+        TM.fused_decode_matmul(x.T.contiguous().T, pw.codes, pw.meta)
+    buf = torch.empty(8 * 256 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):                   # 2-byte aligned only
+        TM.fused_decode_matmul(buf[1:].view(8, 256), pw.codes, pw.meta)
+    with pytest.raises(ValueError):                   # more than 32 rows
+        TM.fused_decode_matmul(_act(22, 33, 256, cuda), pw.codes, pw.meta)
+    assert build.LAUNCHES["fused_decode_matmul"] == 0
+    assert build.LAUNCHES["fused_packed_matmul"] == 0
+
+
+@pytest.mark.parametrize("rows", [8, 40])
+def test_engine_decode_linear_is_one_launch(cuda, rows):
+    """A packed linear with at most 32 rows is one launch of the decode form;
+    with more it is kernel 1 then kernel 2's prefill form. Either way the
+    bits of the plain pair, cast."""
+    from repro_torch.core.qlinear import QuantConfig
+
+    pw = _packed(1024, 2816, cuda)
+    x = _act(23, rows, 1024, cuda).reshape(2, rows // 2, 1024)
+    build.reset_launches()
+    y = engine.matmul(x, pw, engine.EngineCtx(QuantConfig(fmt="hif4",
+                                                          impl="packed")))
+    decode = rows <= TB.DECODE_M_MAX
+    assert build.LAUNCHES["fused_packed_matmul"] == 1
+    assert build.LAUNCHES["fused_decode_matmul"] == int(decode)
+    assert build.LAUNCHES["hif4_quantize"] == int(not decode)
+    ref = TM.fused_decode_matmul_plain(x.reshape(rows, 1024), pw.codes, pw.meta)
+    assert torch.equal(_bits(y.reshape(rows, 2816)), _bits(ref))

@@ -130,7 +130,12 @@ def test_packed_dispatch_info_matches_reference(impl):
         assert it["decode_blocks"] == ij["decode_blocks"]
         assert it["prefill_blocks"] == ij["prefill_blocks"]
         if device == "cuda" and it["fused"]:
-            assert it["decode_tiles"] == (16, 32, 4)
+            # the decode form's plan (M, column tile, CTAs splitting K): 2
+            # column tiles of 32, K = 256 split over its 4 groups
+            assert it["decode_kernel"].startswith("fused_decode_matmul")
+            assert it["decode_tiles"] == (8, 32, 4)
+            assert it["prefill_kernel"].startswith("fused_packed_matmul")
+            assert it["prefill_tiles"] == (64, 64, 2)
 
 
 @pytest.mark.parametrize("impl, hkv, dh", [("packed", 4, 32), ("qdq", 4, 32),
