@@ -20,7 +20,12 @@ Phases (any failure ends the run with a nonzero exit):
              expansion of a packed weight; the decode form of kernel 2
              (kernel 1 as its prologue) bitwise against its plain version
              and kernel 5 at the three decode shapes, timed beside the pair
-             it replaces;
+             it replaces; kernels 3 and 4 also timed at a solo serve's
+             tiling and on the paged phase's ragged table (trailing
+             scratch entries, partial pages), kernel 4 bitwise kernel 3 at
+             block_kv = P at 1, 2, 3, 8 and 33 tiles, a slot of length 0
+             bitwise its plain version, a NaN V scale in the scratch page
+             reaching exactly the slots with trailing entries;
 4. serve   — the main path: full-width qwen1.5-0.5b, policy paper-iv, impl
              packed, HiF4 KV cache, batch 8, prompt 480, 32 new tokens,
              random weights from --seed; the launch counters must show every
@@ -602,6 +607,34 @@ def _packed_cache(b, s, hkv, d, gen, dev):
     return pk, pv
 
 
+def attention_bound_ms(hkv, d, length, pages, tokens) -> float:
+    """Least time of one decode-attention call (bytes over the HBM rate; the
+    q.k and p.V operations are far below the bf16 peak): per slot, K (codes
+    and meta) and V codes of its valid tokens, the V meta of every token of
+    its tiles (a NaN scale there reaches the output), q, the output,
+    the lengths and the page table. ``pages`` None: a contiguous cache of
+    ``tokens`` capacity; else a page table over pages of ``tokens`` tokens,
+    each page read once however many slots hold it."""
+    f = hkv * d
+    kv_tok, vmeta_tok = f + 4 * (f // 64), 4 * (f // 64)    # K + V codes, K meta
+    lens = [max(int(n), 0) for n in length.tolist()]
+    b = len(lens)
+    if pages is None:
+        nbytes = sum(min(n, tokens) * kv_tok + tokens * vmeta_tok for n in lens)
+        valid = sum(min(n, tokens) for n in lens)
+    else:
+        need: dict = {}
+        for row, n in zip(pages.tolist(), lens):
+            for k, pid in enumerate(row):
+                need[pid] = max(need.get(pid, 0), min(max(n - k * tokens, 0), tokens))
+        nbytes = sum(v * kv_tok + tokens * vmeta_tok for v in need.values())
+        nbytes += pages.numel() * 4
+        valid = sum(lens)
+    nbytes += 2 * b * f * 2 + b * 4                 # q, out (H = Hkv), lengths
+    ops = 4 * valid * f
+    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S) * 1e3
+
+
 def check_attention(dev, records):
     import torch
     import torch.nn.functional as F
@@ -642,7 +675,7 @@ def check_attention(dev, records):
     print("  fused_decode_attention: E6M2 0xFF meta -> NaN in its slot only, "
           "as in the plain version")
     hkv, d, cap = 16, 64, 512
-    caches = [_packed_cache(B, cap, hkv, d, gen, dev) for _ in range(24)]
+    caches = [_packed_cache(B, cap, hkv, d, gen, dev) for _ in range(L2_ROTATION)]
     q = (torch.randn(B, hkv, d, generator=gen) * 0.5).to(torch.bfloat16).to(dev)
     length = torch.full((B,), cap, dtype=torch.int32, device=dev)
     args = [(q, pk, pv, length) for pk, pv in caches]
@@ -653,13 +686,32 @@ def check_attention(dev, records):
     dense = [(q[:, :, None], kvcache.dequantize_kv(pk, hkv, d).transpose(1, 2),
               kvcache.dequantize_kv(pv, hkv, d).transpose(1, 2)) for pk, pv in caches]
     library_ms = cuda_ms(F.scaled_dot_product_attention, dense, iters=100)
-    nbytes = 2 * kvcache.packed_kv_nbytes(caches[0][0]) + 2 * q.numel() * 2 + B * 4
-    ops = 4 * B * hkv * cap * d
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S) * 1e3
+    bound_ms = attention_bound_ms(hkv, d, length, None, cap)
     print(f"  fused_decode_attention decode B=8 Hkv=16 D=64 S=512: {_times(t)} "
           f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} (bytes) "
           f"library_ms={library_ms:.5f} (scaled_dot_product_attention on the "
           f"dequantized bf16 K/V, not the same function)")
+    # a solo serve's tiling: block_kv = P = 64, capacity 512 past the ragged
+    # lengths of the paged phase's table (tiles past a length are walked)
+    ragged = torch.tensor(RAGGED_LENGTH, dtype=torch.int32, device=dev)
+    solo = [(q, pk, pv, ragged) for pk, pv in caches]
+    out = fused_decode_attention(*solo[0], n_kv_heads=hkv, d_head=d, block_kv=64)
+    ref = fused_decode_attention_plain(*solo[0], hkv, d, block_kv=64)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    worst = max(worst, float(err.max()))
+    check(bool((err <= 1e-3 + 2 ** -7 * ref.float().abs()).all()),
+          f"fused_decode_attention solo shape: max |d| {float(err.max())} "
+          f"beyond rtol=2^-7, atol=1e-3")
+    s_t = timed(lambda *a: fused_decode_attention(*a, n_kv_heads=hkv, d_head=d,
+                                                  block_kv=64), solo, iters=100)
+    s_plain_ms = cuda_ms(lambda *a: fused_decode_attention_plain(
+        *a, hkv, d, block_kv=64), solo, iters=10)
+    s_bound_ms = attention_bound_ms(hkv, d, ragged, None, cap)
+    print(f"  fused_decode_attention solo shape B=8 Hkv=16 D=64 S=512 "
+          f"block_kv=64, lengths {RAGGED_LENGTH}: max |d| {float(err.max()):.3e} "
+          f"vs plain; {_times(s_t)} plain_ms={s_plain_ms:.5f} "
+          f"bound_ms={s_bound_ms:.6f} (bytes)")
     records["fused_decode_attention"] = {
         "name": "fused_decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_attention.cu",
@@ -668,7 +720,10 @@ def check_attention(dev, records):
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
         "library": "scaled_dot_product_attention on dequantized bf16 K/V, "
                    "not the same function",
-        "shape": "B=8 Hkv=16 D=64 S=512"}
+        "shape": "B=8 Hkv=16 D=64 S=512",
+        "solo": {"shape": f"B=8 Hkv=16 D=64 S=512 block_kv=64 lengths "
+                          f"{RAGGED_LENGTH}", **s_t, "plain_ms": s_plain_ms,
+                 "bound_ms": s_bound_ms, "bound_by": "bytes"}}
 
 
 def _paged_pool(n_pages, P, hkv, d, gen, dev):
@@ -720,6 +775,33 @@ def _compare_paged(q, kp, vp, pages, length, hkv, d, P, label) -> float:
     print(f"  fused_paged_decode_attention {label}: max |d| {float(err.max()):.3e} "
           f"vs plain; bitwise equal to fused_decode_attention at block_kv={P}")
     return float(err.max())
+
+
+# the paged phase's ragged table (pages of 64, 8 entries a slot, a 24-page
+# pool): a shared prefix, partial last pages, trailing scratch entries, a
+# 33-token slot
+RAGGED_TABLE = [[1, 2, 3, 4, 5, 6, 7, 8], [1, 2, 3, 4, 9, 10, 11, 0],
+                [1, 2, 3, 4, 9, 12, 0, 0], [1, 2, 3, 4, 13, 14, 15, 16],
+                [17, 18, 19, 20, 21, 0, 0, 0], [1, 2, 3, 4, 22, 0, 0, 0],
+                [23, 0, 0, 0, 0, 0, 0, 0], [1, 2, 3, 4, 5, 6, 7, 8]]
+RAGGED_LENGTH = [512, 443, 360, 511, 320, 257, 33, 449]
+
+
+def _table_case(max_pages, P, hkv, d, gen, dev):
+    """Four slots over a pool of 1 + 4 * max_pages pages: a full table, one
+    ending in a partial page and a trailing scratch entry, a 1-token slot
+    (every other entry scratch) and a slot of length 0."""
+    import torch
+
+    kp, vp = (_paged_pool(1 + 4 * max_pages, P, hkv, d, gen, dev) for _ in range(2))
+    ids = torch.arange(1, 1 + 4 * max_pages, dtype=torch.int32).reshape(4, max_pages)
+    if max_pages > 1:
+        ids[1, -1] = 0
+    ids[2, 1:] = 0
+    length = torch.tensor([max_pages * P, max(1, (max_pages - 1) * P - 3), 1, 0],
+                          dtype=torch.int32)
+    q = (torch.randn(4, hkv, d, generator=gen) * 0.5).to(torch.bfloat16)
+    return q.to(dev), kp, vp, ids.to(dev), length.to(dev)
 
 
 def check_paged_attention(dev, records):
@@ -776,21 +858,63 @@ def check_paged_attention(dev, records):
                   f"reached slots {holders}, expected the holders of page 7")
     print("  fused_paged_decode_attention: E6M2 0xFF meta in a page -> NaN in "
           "the two slots whose tables hold it, as in the plain version")
+    # every tile count the launch plan meets: kernel 4 bitwise kernel 3 at
+    # block_kv = P, trailing scratch entries and a slot of length 0 included
+    hkv, d, P = 16, 64, 64
+    for max_pages in (1, 2, 3, 8, 33):
+        q, kp, vp, pages, length = _table_case(max_pages, P, hkv, d, gen, dev)
+        worst = max(worst, _compare_paged(q, kp, vp, pages, length, hkv, d, P,
+                                          f"{max_pages} tiles, lengths "
+                                          f"{length.tolist()}"))
+        out = fused_paged_decode_attention(q, kp, vp, pages, length,
+                                           n_kv_heads=hkv, d_head=d)
+        ref = fused_paged_decode_attention_plain(q, kp, vp, pages, length, hkv, d)
+        torch.cuda.synchronize()
+        check(torch.equal(out[3].view(torch.int16), ref[3].view(torch.int16)),
+              f"fused_paged_decode_attention {max_pages} tiles: the length-0 slot "
+              f"is not bitwise the plain version's")
+    print("  fused_paged_decode_attention: a slot of length 0 bitwise equal to "
+          "the plain version at 1, 2, 3, 8, 33 tiles")
+    # a NaN V scale in the scratch page: p = 0 there, but 0 * NaN reaches
+    # the slots whose tables hold the page past their length; a NaN K scale
+    # there is masked
+    q, kp, vp, pages, length = _table_case(3, P, hkv, d, gen, dev)
+    vp["meta"][0, 0, 5] |= -(1 << 24)
+    kp["meta"][0, 1, 7] |= -(1 << 24)
+    out = fused_paged_decode_attention(q, kp, vp, pages, length,
+                                       n_kv_heads=hkv, d_head=d)
+    ref = fused_paged_decode_attention_plain(q, kp, vp, pages, length, hkv, d)
+    torch.cuda.synchronize()
+    holders = out.isnan().flatten(1).any(1).tolist()
+    check(torch.equal(out.isnan(), ref.isnan())
+          and holders == [False, True, True, False],
+          f"fused_paged_decode_attention: a NaN V scale in the scratch page "
+          f"reached slots {holders}, expected [False, True, True, False] "
+          f"(the slots with trailing entries), as the plain version")
+    print("  fused_paged_decode_attention: E6M2 0xFF V meta in the scratch page "
+          "-> NaN in exactly the slots with trailing entries, as in the plain "
+          "version; a NaN K scale there is masked")
     # the paged phase's shape: 24 pages of P=64, tables of 8 entries (tiles
     # 4-7 in use), lengths up to 8P, a shared prefix, partial last pages
     # and trailing scratch entries
     B, hkv, d, P, maxp = 8, 16, 64, 64, 8
-    main = torch.tensor([[1, 2, 3, 4, 5, 6, 7, 8], [1, 2, 3, 4, 9, 10, 11, 0],
-                         [1, 2, 3, 4, 9, 12, 0, 0], [1, 2, 3, 4, 13, 14, 15, 16],
-                         [17, 18, 19, 20, 21, 0, 0, 0], [1, 2, 3, 4, 22, 0, 0, 0],
-                         [23, 0, 0, 0, 0, 0, 0, 0], [1, 2, 3, 4, 5, 6, 7, 8]],
-                        dtype=torch.int32, device=dev)
-    kp, vp = (_paged_pool(24, P, hkv, d, gen, dev) for _ in range(2))
+    main = torch.tensor(RAGGED_TABLE, dtype=torch.int32, device=dev)
+    ragged_pools = [(_paged_pool(24, P, hkv, d, gen, dev),
+                     _paged_pool(24, P, hkv, d, gen, dev)) for _ in range(L2_ROTATION)]
     q = (torch.randn(B, hkv, d, generator=gen) * 0.5).to(torch.bfloat16).to(dev)
-    length = torch.tensor([8 * P, 7 * P - 5, 5 * P + 40, 8 * P - 1, 5 * P, 4 * P + 1,
-                           33, 7 * P + 1], dtype=torch.int32, device=dev)
-    worst = max(worst, _compare_paged(q, kp, vp, main, length, hkv, d, P,
-                                      "Hkv=16 D=64 P=64 max_pages=8 NP=24"))
+    length = torch.tensor(RAGGED_LENGTH, dtype=torch.int32, device=dev)
+    worst = max(worst, _compare_paged(q, *ragged_pools[0], main, length, hkv,
+                                      d, P, "Hkv=16 D=64 P=64 max_pages=8 NP=24"))
+    r_args = [(q, kp, vp, main, length) for kp, vp in ragged_pools]
+    r_t = timed(lambda *a: fused_paged_decode_attention(*a, n_kv_heads=hkv, d_head=d),
+                r_args, iters=100)
+    r_plain_ms = cuda_ms(lambda *a: fused_paged_decode_attention_plain(*a, hkv, d),
+                         r_args, iters=10)
+    r_bound_ms = attention_bound_ms(hkv, d, length, main, P)
+    print(f"  fused_paged_decode_attention ragged table B=8 Hkv=16 D=64 P=64 "
+          f"max_pages=8 NP=24: {_times(r_t)} plain_ms={r_plain_ms:.5f} "
+          f"bound_ms={r_bound_ms:.6f} (bytes)")
+    del ragged_pools, r_args
     n_pages = 1 + B * maxp
     table = torch.arange(1, n_pages, dtype=torch.int32, device=dev).reshape(B, maxp)
     pools = [(_paged_pool(n_pages, P, hkv, d, gen, dev),
@@ -810,16 +934,10 @@ def check_paged_attention(dev, records):
         vd = kvcache.dequantize_kv(_contiguous_from_pages(vp, table), hkv, d)
         dense.append((q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)))
     library_ms = cuda_ms(F.scaled_dot_product_attention, dense, iters=100)
-    # bytes the table names (each page once) + q, out, table and lengths
-    n_read = int(table.unique().numel())
-    page_bytes = sum(a[0].numel() * a.element_size()
-                     for kp_vp in pools[0] for a in (kp_vp["codes"], kp_vp["meta"]))
-    nbytes = n_read * page_bytes + 2 * q.numel() * 2 + table.numel() * 4 + B * 4
-    ops = 4 * B * hkv * maxp * P * d
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S) * 1e3
+    bound_ms = attention_bound_ms(hkv, d, length, table, P)
     print(f"  fused_paged_decode_attention decode B=8 Hkv=16 D=64 P=64 "
           f"max_pages=8: {_times(t)} plain_ms={plain_ms:.5f} "
-          f"bound_ms={bound_ms:.6f} (bytes: {nbytes} B) library_ms="
+          f"bound_ms={bound_ms:.6f} (bytes) library_ms="
           f"{library_ms:.5f} (scaled_dot_product_attention on the gathered, "
           f"dequantized bf16 K/V, not the same function)")
     records["fused_paged_decode_attention"] = {
@@ -830,7 +948,10 @@ def check_paged_attention(dev, records):
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
         "library": "scaled_dot_product_attention on gathered, dequantized "
                    "bf16 K/V, not the same function",
-        "shape": "B=8 Hkv=16 D=64 P=64 max_pages=8"}
+        "shape": "B=8 Hkv=16 D=64 P=64 max_pages=8",
+        "ragged": {"shape": f"B=8 Hkv=16 D=64 P=64 table {RAGGED_TABLE} lengths "
+                            f"{RAGGED_LENGTH}", **r_t, "plain_ms": r_plain_ms,
+                   "bound_ms": r_bound_ms, "bound_by": "bytes"}}
 
 
 # ---------------------------------------------------------------------------

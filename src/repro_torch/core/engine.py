@@ -282,8 +282,10 @@ def attention_dispatch_info(quant: QuantConfig, k_cache: dict, *,
     if torch.device(device).type != "cuda":
         return {"fused": False, "block_kv": block, "kernel_eligible": True,
                 "route": route, "execution": "plain recurrence (CPU)"}
+    execution = ("CUDA fused kernel" if d_head % 2 == 0
+                 else "CUDA fused kernel (refuses an odd d_head: raises)")
     return {"fused": True, "block_kv": block, "kernel_eligible": True,
-            "route": route, "execution": "CUDA fused kernel"}
+            "route": route, "execution": execution}
 
 
 # ---------------------------------------------------------------------------

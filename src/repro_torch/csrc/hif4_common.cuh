@@ -36,8 +36,9 @@ __device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
 // the E6M2 code 0xFF decodes to NaN.
 __device__ __forceinline__ float meta_scale(uint32_t meta) {
   const uint32_t code = meta >> 24;
-  const float s = pow2i(static_cast<int>(code >> 2) - 48) *
-                  (1.0f + static_cast<float>(code & 3u) * 0.25f) * 0.25f;
+  // 2^(E - 50) * (1 + M/4): the mantissa bits placed in 1.0f's fraction
+  const float s = pow2i(static_cast<int>(code >> 2) - 50) *
+                  __uint_as_float(0x3F800000u | ((code & 3u) << 21));
   return code == 0xFFu ? qnan() : s;
 }
 

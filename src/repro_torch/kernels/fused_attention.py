@@ -4,11 +4,16 @@ cache, contiguous and paged.
 Ports of the TPU Pallas kernels ``repro/kernels/fused_attention.py::
 fused_decode_attention`` (contiguous cache) and
 ``fused_paged_decode_attention`` (page pool) as the CUDA kernels of
-``csrc/fused_attention.cu``: one CTA per (slot, KV-head block), the KV tiles
-walked in a loop inside it. Both kernels share one CTA body; only the tile
-loader differs (a token slice of the slot's cache, or pool page
-``pages[b, k]``), so paged attention at page size P is bitwise equal to the
-contiguous kernel at ``block_kv = P`` by construction.
+``csrc/fused_attention.cu``: one CTA per (slot, KV-head block) stages waves
+of KV tiles into shared memory and runs each step of the recurrence over all
+of a wave's tiles at once, the scalar chain and the accumulator in tile
+order (:func:`attention_plan` is its launch plan). Both kernels share one CTA
+body; only the tile loader differs (a token slice of the slot's cache, or
+pool page ``pages[b, k]``), and every reduction inside a tile is laid out by
+the tile and head widths alone (:func:`tile_layout`), so paged attention at
+page size P is bitwise equal to the contiguous kernel at ``block_kv = P`` by
+construction. Every tile is walked, as in the reference, those wholly past
+a slot's length too.
 
   contiguous: q (B, H, D) bf16; K and V each codes (B, F/2, S) uint8, meta
               (B, G, S) int32 (uint32 bits), no staging tail; length (B,)
@@ -29,6 +34,8 @@ layout, staging tail); the wrappers take them only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -38,14 +45,18 @@ import torch
 from repro_torch.core import kvcache
 from repro_torch.kernels import build
 from repro_torch.kernels.bfp_matmul import _fit
+from repro_torch.kernels.fused_matmul import SMEM_PER_CTA_MAX, _r16
 
 NEG_INF = -1e30   # masked-score value (repro_torch.models.attention.NEG_INF)
 
 # Decode KV tiles: deep tiles for payload per step; caches of at most one
 # tile take a single tile (where the recurrence IS the flat softmax).
 _KV_TILE = 256
-# shared memory a block may use on Hopper
-_SMEM_MAX = 232_448
+# csrc/fused_attention.cu: threads per CTA, tokens per p.V partial sum,
+# bytes of a staged tile address (two size_t and an int)
+ATTN_THREADS = 512
+_PART_TOKENS = 32
+_TILE_ADDR_BYTES = 24
 
 
 def select_kv_block(seq: int, block_kv: Optional[int] = None) -> int:
@@ -66,12 +77,127 @@ def heads_per_block(d_head: int) -> int:
 
 def kernel_compatible(k_cache: dict, n_kv_heads: int, d_head: int) -> bool:
     """Kernel-tile layout, no partial-group staging tail, head blocks that
-    divide the head count (a page pool's leaves qualify the same way)."""
+    divide the head count (the reference's rule); a page pool's leaves
+    qualify the same way. The CUDA kernels also need an even head width (a
+    head of whole code bytes): :func:`attention_plan` refuses an odd one,
+    so on the card it raises rather than taking the plain version."""
     return (
         kvcache.is_kernel_layout(k_cache)
         and k_cache["tail"].shape[-2] == 0
         and n_kv_heads % heads_per_block(d_head) == 0
     )
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch plan
+# ---------------------------------------------------------------------------
+
+
+def quad_path(d_head: int) -> bool:
+    """The kernels' quad path (4 tokens per thread, 16-feature slices of a
+    head) takes heads of D = 16 * ns features with ns a power of two up to
+    32 (its xor tree adds a head's ns slices on aligned groups of lanes),
+    and tiles of any width (padded to a multiple of 4 with absent tokens);
+    the scalar path the rest (D = 40, 80, 96, 192, ...)."""
+    ns = d_head // 16
+    return d_head % 16 == 0 and ns <= 32 and ns & (ns - 1) == 0
+
+
+def tile_layout(ck: int, d_head: int) -> tuple:
+    """How the kernels lay out the reductions of one KV tile of ``ck``
+    tokens, a function of the tile and head widths alone (never of the tile
+    count, the batch or the kernel): (staged code row pitch in bytes, p.V
+    partial sums, tokens per partial sum, p.V chains per partial sum,
+    slices per dot product, chunks of the sum of e).
+
+    q.k: on the quad path D/16 slices of 16 features, each an FMA chain in
+    feature order, added by an xor tree; else one chain in feature order.
+    The tile max is exact in any order. The sum of e: where ck % 32 == 0,
+    chunks of 32 consecutive tokens (an xor tree each) added in chunk
+    order; else lane l of a warp takes tokens l, l+32, ... in order, then an
+    xor tree over the 32 lanes. p.V: part j sums tokens [32j, 32j+32), on
+    the quad path in 4 chains (token t to chain t % 4, then (c0 + c1) +
+    (c2 + c3)), else in token order; the parts are added in part order."""
+    quads = quad_path(d_head)
+    return (-(-ck // 4) * 4 + 4, -(-ck // _PART_TOKENS), _PART_TOKENS,
+            4 if quads else 1, d_head // 16 if quads else 1,
+            ck // 32 if ck % 32 == 0 else 1)
+
+
+def _smem_bytes(rows: int, d_head: int, fb: int, ck: int, wave: int,
+                stages: int) -> int:
+    """csrc/fused_attention.cu's ``layout``: the staged tiles (K and V code
+    rows at the padded pitch, K and V meta words in rows of ck rounded up to
+    4) times wave and stages, the wave's tile addresses (two slots), q, acc,
+    the carried (m, l), the scores, the V scales (per block of 4 features on
+    the quad path, per 64-group else), the p.V parts, and five scalars and
+    the chunk sums of e per (tile, row)."""
+    pitch, parts, _, _, _, chunks = tile_layout(ck, d_head)
+    ngr, rd, ck4 = fb // 64, rows * d_head, pitch - 4
+    tile = 2 * _r16(fb // 2 * pitch) + 2 * _r16(ngr * ck4 * 4)
+    v_scales = (wave * ngr * 16 * (ck4 + 4) * 4 if quad_path(d_head)
+                else wave * ngr * ck * 4)
+    return (stages * wave * tile + _r16(2 * wave * _TILE_ADDR_BYTES)
+            + 2 * _r16(rd * 4) + _r16(2 * rows * 4) + _r16(wave * rows * ck4 * 4)
+            + _r16(v_scales) + _r16(wave * parts * rd * 4)
+            + _r16((5 + chunks) * wave * rows * 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """The launch of kernels 3 and 4: ``grid`` = (head blocks, slots), one
+    CTA of ``threads`` per (slot, head block) and no cluster, so no tile is
+    ever split across CTAs; a CTA walks its tiles in waves of ``wave``
+    through ``stages`` shared-memory buffers (1 when one wave holds every
+    tile, else a ring of 2), with ``smem_bytes`` of dynamic shared memory.
+    ``pitch`` and ``parts`` are :func:`tile_layout`'s."""
+
+    grid: tuple
+    threads: int
+    wave: int
+    stages: int
+    pitch: int
+    parts: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(batch: int, n_kv_heads: int, rep: int, d_head: int,
+                   ck: int, n_tiles: int) -> AttentionPlan:
+    """Every tile in one wave when that fits in 227 KB of shared memory;
+    else the widest wave of a two-stage ring that fits. Raises when one
+    tile does not fit, and for an odd ``d_head``."""
+    hb = heads_per_block(d_head)
+    rows, fb = hb * rep, hb * d_head
+    if d_head % 2:
+        raise ValueError(f"the decode-attention kernels need an even d_head (a "
+                         f"head of whole code bytes), got {d_head}")
+    if batch < 1 or n_tiles < 1 or ck < 1 or n_kv_heads % hb \
+            or rows > ATTN_THREADS:
+        raise ValueError(f"no decode-attention launch for batch={batch}, "
+                         f"n_kv_heads={n_kv_heads}, rep={rep}, d_head={d_head}, "
+                         f"ck={ck}, n_tiles={n_tiles}")
+    pitch, parts = tile_layout(ck, d_head)[:2]
+    grid = (n_kv_heads // hb, batch)
+
+    def plan(wave, stages):
+        return AttentionPlan(grid, ATTN_THREADS, wave, stages, pitch, parts,
+                             _smem_bytes(rows, d_head, fb, ck, wave, stages))
+
+    if _smem_bytes(rows, d_head, fb, ck, n_tiles, 1) <= SMEM_PER_CTA_MAX:
+        return plan(n_tiles, 1)
+    lo, hi = 0, n_tiles - 1                 # the widest two-stage wave that fits
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if _smem_bytes(rows, d_head, fb, ck, mid, 2) <= SMEM_PER_CTA_MAX:
+            lo = mid
+        else:
+            hi = mid - 1
+    if lo < 1:
+        raise ValueError(f"a KV tile of {ck} tokens needs "
+                         f"{_smem_bytes(rows, d_head, fb, ck, 1, 2)} B of shared "
+                         f"memory in a two-stage ring (> {SMEM_PER_CTA_MAX})")
+    return plan(lo, 2)
 
 
 def _sqrt_d(d_head: int) -> float:
@@ -205,15 +331,6 @@ def _check_cuda_operands(name: str, q, length, caches, want: dict) -> torch.Tens
     return length
 
 
-def _check_smem(name: str, rows: int, d_head: int, fb: int, ck: int) -> None:
-    i = ctypes.c_int
-    smem = build.function("fused_attention", "fused_decode_attention_smem",
-                          [i, i, i, i], ctypes.c_longlong)(rows, d_head, fb, ck)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"{name}: KV tile {ck} needs {smem} B of shared "
-                         f"memory (> {_SMEM_MAX})")
-
-
 def fused_decode_attention(q, k_cache: dict, v_cache: dict, length, *,
                            n_kv_heads: int, d_head: int,
                            block_kv: Optional[int] = None) -> torch.Tensor:
@@ -232,18 +349,18 @@ def fused_decode_attention(q, k_cache: dict, v_cache: dict, length, *,
     length = _check_cuda_operands(
         "fused_decode_attention", q, length, (k_cache, v_cache),
         {"codes": ((B, g * 32, S), torch.uint8), "meta": ((B, g, S), torch.int32)})
-    hb = heads_per_block(d_head)
     rep = H // n_kv_heads
     ck = select_kv_block(S, block_kv)
-    _check_smem("fused_decode_attention", hb * rep, d_head, hb * d_head, ck)
+    plan = attention_plan(B, n_kv_heads, rep, d_head, ck, S // ck)
     out = torch.empty_like(q)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = build.function("fused_attention", "fused_decode_attention",
-                        [p] * 7 + [i] * 7 + [ctypes.c_float, p])
+                        [p] * 7 + [i] * 10 + [ctypes.c_float, p])
     rc = fn(q.data_ptr(), k_cache["codes"].data_ptr(), k_cache["meta"].data_ptr(),
             v_cache["codes"].data_ptr(), v_cache["meta"].data_ptr(),
             length.data_ptr(), out.data_ptr(), B, n_kv_heads, rep, d_head, S,
-            ck, hb, _sqrt_d(d_head), build.stream_ptr(q.device))
+            ck, heads_per_block(d_head), plan.wave, plan.stages,
+            plan.smem_bytes, _sqrt_d(d_head), build.stream_ptr(q.device))
     build.check("fused_attention", "fused_decode_attention", rc)
     return out
 
@@ -279,17 +396,17 @@ def fused_paged_decode_attention(q, k_pool: dict, v_pool: dict, pages, length,
         raise ValueError(f"fused_paged_decode_attention: pages must be a "
                          f"contiguous int32 tensor on {q.device} with at least "
                          f"one entry per slot")
-    hb = heads_per_block(d_head)
     rep = H // n_kv_heads
-    _check_smem("fused_paged_decode_attention", hb * rep, d_head, hb * d_head, P)
+    plan = attention_plan(B, n_kv_heads, rep, d_head, P, pages.shape[1])
     out = torch.empty_like(q)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = build.function("fused_attention", "fused_paged_decode_attention",
-                        [p] * 8 + [i] * 7 + [ctypes.c_float, p])
+                        [p] * 8 + [i] * 10 + [ctypes.c_float, p])
     rc = fn(q.data_ptr(), k_pool["codes"].data_ptr(), k_pool["meta"].data_ptr(),
             v_pool["codes"].data_ptr(), v_pool["meta"].data_ptr(),
             pages.data_ptr(), length.data_ptr(), out.data_ptr(), B, n_kv_heads,
-            rep, d_head, P, pages.shape[1], hb, _sqrt_d(d_head),
+            rep, d_head, P, pages.shape[1], heads_per_block(d_head), plan.wave,
+            plan.stages, plan.smem_bytes, _sqrt_d(d_head),
             build.stream_ptr(q.device))
     build.check("fused_attention", "fused_paged_decode_attention", rc)
     return out

@@ -79,7 +79,11 @@ def test_matmul_vs_plain(cuda, m, k, n):
     assert bool(((y - ref).abs() <= 1e-5 * abs_sum).all())
 
 
-@pytest.mark.parametrize("hkv, rep, d, s", [(16, 1, 64, 512), (4, 2, 32, 160)])
+@pytest.mark.parametrize("hkv, rep, d, s", [(16, 1, 64, 512), (4, 2, 32, 160),
+                                           (8, 2, 128, 256), (4, 2, 32, 33),
+                                           (16, 1, 64, 4096), (16, 1, 64, 492),
+                                           (8, 1, 40, 100), (8, 1, 80, 100),
+                                           (4, 2, 96, 160), (2, 6, 192, 130)])
 def test_attention_vs_plain(cuda, hkv, rep, d, s):
     g = torch.Generator().manual_seed(13)
     b = 6
@@ -154,6 +158,108 @@ def test_paged_attention_nan_meta_reaches_only_its_holders(cuda):
     ref = TA.fused_paged_decode_attention_plain(q, kp, vp, pages, length, 16, 64)
     assert torch.equal(out.isnan(), ref.isnan())
     assert out.isnan().flatten(1).any(1).tolist() == [True, True, False, False]
+
+
+def _table_case(device, max_pages, P=16, hkv=16, d=64, seed=16):
+    """Four slots over a pool of 1 + 4 * max_pages pages: a full table, one
+    ending in a partial page and a trailing scratch entry, a 1-token slot
+    (all but its first entry scratch) and a slot of length 0."""
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda *shape: (torch.randn(*shape, generator=g) * 0.5).to(torch.bfloat16)
+    n_pages = 1 + 4 * max_pages
+
+    def pool():
+        pk = kvcache.to_kernel_layout(kvcache.quantize_kv(mk(n_pages * P, hkv, d)))
+        return {k: a.reshape(a.shape[0], n_pages, P).transpose(0, 1).contiguous()
+                .to(device) for k, a in pk.items()}
+
+    ids = torch.arange(1, n_pages, dtype=torch.int32).reshape(4, max_pages)
+    if max_pages > 1:
+        ids[1, -1] = 0
+    ids[2, 1:] = 0
+    length = torch.tensor([max_pages * P, max(1, (max_pages - 1) * P - 3), 1, 0],
+                          dtype=torch.int32)
+    return (mk(4, hkv, d).to(device), pool(), pool(), ids.to(device),
+            length.to(device))
+
+
+@pytest.mark.parametrize("max_pages, P", [(1, 16), (2, 16), (3, 16), (8, 16),
+                                          (33, 16), (3, 18)])
+def test_paged_bitwise_contiguous_at_every_tile_count(cuda, max_pages, P):
+    """Kernel 4 is kernel 3 at block_kv = P bit for bit whatever the tile
+    count (and at a page size that is not a multiple of 4), with trailing
+    scratch entries and a length-0 slot, and within the tolerance of its
+    plain version."""
+    q, kp, vp, pages, length = _table_case(cuda, max_pages, P=P)
+    out = TA.fused_paged_decode_attention(q, kp, vp, pages, length,
+                                          n_kv_heads=16, d_head=64)
+    cont = TA.fused_decode_attention(q, _contiguous(kp, pages),
+                                     _contiguous(vp, pages), length,
+                                     n_kv_heads=16, d_head=64, block_kv=P)
+    assert torch.equal(out.view(torch.int16), cont.view(torch.int16))
+    ref = TA.fused_paged_decode_attention_plain(q, kp, vp, pages, length, 16, 64)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("hkv, rep, d", [(4, 1, 80), (2, 2, 96), (2, 6, 192)])
+def test_paged_bitwise_contiguous_at_scalar_path_head_widths(cuda, hkv, rep, d):
+    """Head widths whose D/16 is not a power of two (zamba2's 80, 96,
+    nemotron-4's 192) take the scalar path: kernel 4 is still kernel 3 at
+    block_kv = P bit for bit, and within the tolerance of its plain
+    version."""
+    q, kp, vp, pages, length = _table_case(cuda, 3, hkv=hkv, d=d)
+    q = q.repeat_interleave(rep, dim=1).contiguous()
+    out = TA.fused_paged_decode_attention(q, kp, vp, pages, length,
+                                          n_kv_heads=hkv, d_head=d)
+    cont = TA.fused_decode_attention(q, _contiguous(kp, pages),
+                                     _contiguous(vp, pages), length,
+                                     n_kv_heads=hkv, d_head=d, block_kv=16)
+    assert torch.equal(out.view(torch.int16), cont.view(torch.int16))
+    ref = TA.fused_paged_decode_attention_plain(q, kp, vp, pages, length, hkv, d)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+
+
+def test_attention_refuses_an_odd_head_width(cuda):
+    """An odd d_head is kernel-compatible by the reference's rule, but the
+    kernels take heads of whole code bytes: on the card the wrapper raises
+    (no quiet switch to the plain version)."""
+    g = torch.Generator().manual_seed(17)
+    kv = (torch.randn(2, 64, 64, 3, generator=g) * 0.5).to(torch.bfloat16)
+    cache = {k: a.to(cuda) for k, a in
+             kvcache.to_kernel_layout(kvcache.quantize_kv(kv)).items()}
+    q = (torch.randn(2, 64, 3, generator=g) * 0.5).to(torch.bfloat16).to(cuda)
+    length = torch.tensor([5, 64], dtype=torch.int32, device=cuda)
+    assert TA.kernel_compatible(cache, 64, 3)
+    with pytest.raises(ValueError, match="even d_head"):
+        TA.fused_decode_attention(q, cache, cache, length, n_kv_heads=64, d_head=3)
+
+
+def test_trailing_scratch_entries_keep_the_nan_rule(cuda):
+    """A NaN V scale in the scratch page reaches exactly the slots whose
+    tables hold it, as in the plain version (p = 0 there, 0 * NaN); a NaN K
+    scale there is masked and reaches none."""
+    q, kp, vp, pages, length = _table_case(cuda, 3)
+    vp["meta"][0, 0, 5] |= -(1 << 24)               # group 0 = head 0's features
+    kp["meta"][0, 1, 7] |= -(1 << 24)
+    out = TA.fused_paged_decode_attention(q, kp, vp, pages, length,
+                                          n_kv_heads=16, d_head=64)
+    ref = TA.fused_paged_decode_attention_plain(q, kp, vp, pages, length, 16, 64)
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert out.isnan().flatten(1).any(1).tolist() == [False, True, True, False]
+    assert bool(out[1, 0].isnan().all()) and not bool(out[1, 1:].isnan().any())
+
+
+def test_length_zero_slot_is_bitwise_plain(cuda):
+    """A slot of length 0 (its masked tokens weigh exp(0) = 1 in the
+    reference): p is a power of two or its products are exact, so its bits
+    are the plain version's."""
+    for max_pages in (1, 3, 8):
+        q, kp, vp, pages, length = _table_case(cuda, max_pages)
+        out = TA.fused_paged_decode_attention(q, kp, vp, pages, length,
+                                              n_kv_heads=16, d_head=64)
+        ref = TA.fused_paged_decode_attention_plain(q, kp, vp, pages, length,
+                                                    16, 64)
+        assert torch.equal(out[3].view(torch.int16), ref[3].view(torch.int16))
 
 
 def test_paged_attention_refuses_empty_work(cuda):

@@ -139,7 +139,7 @@ def test_packed_dispatch_info_matches_reference(impl):
 
 
 @pytest.mark.parametrize("impl, hkv, dh", [("packed", 4, 32), ("qdq", 4, 32),
-                                           ("packed", 3, 24)])
+                                           ("packed", 3, 24), ("packed", 64, 3)])
 def test_attention_dispatch_info_matches_reference(impl, hkv, dh):
     kv = jnp.zeros((1, 96, hkv, dh), jnp.bfloat16)
     cj = JK.to_kernel_layout(JK.quantize_kv(kv))
