@@ -16,7 +16,12 @@ Phases (any failure ends the run with a nonzero exit):
              slower side), device_ms (the same calls captured in a CUDA
              graph, its replays timed) and host_us (host clock per wrapper
              call); kernel 1 also at the prefill and tied embedding's
-             shapes, kernel 5 bitwise against kernel 2 on the absorbed
+             shapes; kernel 2 called directly bitwise at M 8, 33, 300 and
+             3840 (above 32 rows the int8 tensor-core body) in f32 and bf16
+             out, its prefill form timed at the main path's three prefill
+             shapes (launch-weighted, with the promotion's CUDA-core floor
+             beside the bound and torch._int_mm beside torch.matmul as
+             yardsticks); kernel 5 bitwise against kernel 2 on the absorbed
              expansion of a packed weight; the decode form of kernel 2
              (kernel 1 as its prologue) bitwise against its plain version
              and kernel 5 at the three decode shapes, timed beside the pair
@@ -89,6 +94,12 @@ F32_FLOPS_PER_S = 67e12
 L2_ROTATION = 24
 # qwen1.5-0.5b's tied embedding (vocab, d_model): the pallas LM head's weight
 EMBED_SHAPE = (151936, 1024)
+# qwen1.5-0.5b's quantized linears (K, N): wq wk wv wo, wg wu, the MLP's wo;
+# and how many of a layer's 7 linears take each; the prefill's rows (batch 8
+# x prompt 480)
+DECODE_SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024))
+DECODE_SITES = {(1024, 1024): 4, (1024, 2816): 2, (2816, 1024): 1}
+PREFILL_M = 3840
 
 
 class PhaseError(RuntimeError):
@@ -294,71 +305,147 @@ def _quantize_bound_ms(m, k):
 
 
 def check_matmul(dev, records):
+    """Kernel 2 called directly: bitwise equal to its plain version (kernel
+    5's on the expanded weight, then the cast) in f32 and bf16 out at the
+    three linear shapes for M in {8, 33, 300, 3840} (M > 32: the tensor-core
+    body) and at a ragged shape (N % 16 != 0, K/64 = 5); a NaN meta word
+    confined to its column; then the prefill form timed at the main path's
+    three prefill shapes (M = 3840 = batch 8 x prompt 480, bf16 out as the
+    engine asks), launch-weighted 4 : 2 : 1 as a layer's linears take them."""
     import torch
     from repro_torch.core import hif4
     from repro_torch.core.qlinear import PackedW
-    from repro_torch.kernels.bfp_matmul import bfp_matmul_quantized_plain
     from repro_torch.kernels.fused_matmul import (
         fused_packed_matmul, fused_packed_matmul_plain)
     from repro_torch.kernels.hif4_quant import absorbed_activation
 
     gen = torch.Generator().manual_seed(12)
-    worst = 0.0
-    for k, n in ((1024, 1024), (1024, 2816), (2816, 1024)):
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    worst, cases = 0.0, 0
+    for k, n in DECODE_SHAPES + ((320, 1000),):
         w = (torch.randn(k, n, generator=gen) * 0.02).to(torch.bfloat16).to(dev)
         codes, meta = PackedW.from_dense(w).to_kernel_layout().kernel_operands()
-        b_ints, b_sc = hif4.absorbed_int_km(codes, meta)
-        for m in (8, 3840):
+        for m in (8, 33, 300, 3840):
             x = torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev)
             ai, asc = absorbed_activation(x)
-            y = fused_packed_matmul(ai, asc, codes, meta)
-            ref = fused_packed_matmul_plain(ai, asc, codes, meta)
-            rowabs = bfp_matmul_quantized_plain(ai.abs(), asc.abs(), b_ints.abs(),
-                                                b_sc.abs())
-            torch.cuda.synchronize()
-            err = (y - ref).abs()
-            worst = max(worst, float(err.max()))
-            ok = bool((err <= 1e-5 * rowabs + 1e-30).all())
-            check(ok, f"fused_packed_matmul M={m} K={k} N={n}: max |d| "
-                  f"{float(err.max())} beyond 1e-5 of the row abs sum")
-            print(f"  fused_packed_matmul M={m} K={k} N={n}: max |d| "
-                  f"{float(err.max()):.3e} (bitwise: {torch.equal(y, ref)})")
-    # the prefill form on the main path's prefill shape (batch 8 x prompt
-    # 480 rows; the decode form is timed in check_decode_matmul)
-    m, k, n = 3840, 1024, 2816
-    copies = []
-    for _ in range(12):              # 12 x 1.6 MB packed + 8.3 MB of x
-        w = (torch.randn(k, n, generator=gen) * 0.02).to(torch.bfloat16).to(dev)
-        codes, meta = PackedW.from_dense(w).to_kernel_layout().kernel_operands()
-        x = torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev)
-        copies.append((*absorbed_activation(x), codes, meta, x, w))
-    t = timed(fused_packed_matmul, [c[:4] for c in copies], iters=60)
-    plain_ms = cuda_ms(fused_packed_matmul_plain, [c[:4] for c in copies], iters=5,
-                       warmup=1)
-    library_ms = cuda_ms(torch.matmul, [c[4:] for c in copies], iters=60)
-    nbytes = m * k + m * (k // 64) * 4 + k * n // 2 + (k // 64) * n * 4 + m * n * 4
-    ops = 2 * m * n * k
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-    bound_ms, bound_by = max(by_bytes, by_ops) * 1e3, (
-        "bytes" if by_bytes >= by_ops else "operations")
-    print(f"  fused_packed_matmul prefill form M={m} K={k} N={n}: {_times(t)} "
-          f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}) "
-          f"library_ms={library_ms:.5f} (torch.matmul bf16 dense, not the "
-          f"same function)")
+            for label, dt in dts.items():
+                y = fused_packed_matmul(ai, asc, codes, meta, dt)
+                ref = fused_packed_matmul_plain(ai, asc, codes, meta, dt)
+                torch.cuda.synchronize()
+                worst = max(worst, float((y.float() - ref.float()).abs().max()))
+                check(torch.equal(bits(y), bits(ref)),
+                      f"fused_packed_matmul M={m} K={k} N={n} {label}: not "
+                      f"bitwise equal to the plain version at "
+                      f"{int((bits(y) != bits(ref)).sum())} outputs")
+                cases += 1
+        print(f"  fused_packed_matmul K={k} N={n}: bitwise equal to the plain "
+              f"version at M 8, 33, 300, 3840, f32 and bf16 out")
+    w = (torch.randn(1024, 1000, generator=gen) * 0.02).to(torch.bfloat16).to(dev)
+    codes, meta = PackedW.from_dense(w).to_kernel_layout().kernel_operands()
+    meta = meta.clone()
+    meta[5, 997] |= -(1 << 24)                        # E6M2 code 0xFF
+    for m in (8, 300):
+        ai, asc = absorbed_activation(
+            torch.randn(m, 1024, generator=gen).to(torch.bfloat16).to(dev))
+        y = fused_packed_matmul(ai, asc, codes, meta)
+        want = torch.zeros_like(y, dtype=torch.bool)
+        want[:, 997] = True
+        torch.cuda.synchronize()
+        check(torch.equal(y.isnan(), want), f"fused_packed_matmul M={m}: a NaN "
+              f"meta word reached outputs outside its column")
+    print(f"  fused_packed_matmul: {cases} cases bitwise; NaN meta -> its column "
+          f"only (M 8 and 300)")
+
+    def prefill(ai, asc, codes, meta):
+        return fused_packed_matmul(ai, asc, codes, meta, torch.bfloat16)
+
+    def plain(ai, asc, codes, meta):
+        return fused_packed_matmul_plain(ai, asc, codes, meta, torch.bfloat16)
+
+    m, shapes = PREFILL_M, []
+    for k, n in DECODE_SHAPES:
+        copies = []
+        for _ in range(8):           # 8 x (3.9 MB of ints + the weight) > L2
+            w = (torch.randn(k, n, generator=gen) * 0.02).to(torch.bfloat16).to(dev)
+            codes, meta = PackedW.from_dense(w).to_kernel_layout().kernel_operands()
+            x = torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev)
+            ai, asc = absorbed_activation(x)
+            b_nk = hif4.absorbed_int_km(codes, meta)[0].T.contiguous()
+            copies.append(((ai, asc, codes, meta), (x, w), (ai, b_nk.T)))
+        t = timed(prefill, [c[0] for c in copies], iters=60)
+        plain_ms = cuda_ms(plain, [c[0] for c in copies], iters=3, warmup=1)
+        library_ms = cuda_ms(torch.matmul, [c[1] for c in copies], iters=60)
+        try:
+            int_mm_ms = cuda_ms(torch._int_mm, [c[2] for c in copies], iters=60)
+        except RuntimeError as e:        # a yardstick only: note a refusal
+            int_mm_ms = None
+            print(f"  torch._int_mm refused ({str(e).splitlines()[0]})")
+        bound_ms, bound_by, nbytes = _prefill_bound_ms(m, k, n)
+        floor_ms = _promotion_floor_ms(m, k, n)
+        print(f"  fused_packed_matmul prefill form M={m} K={k} N={n} bf16: "
+              f"{_times(t)} plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} "
+              f"({bound_by}: {nbytes} B) promotion floor {floor_ms:.6f} ms; "
+              f"library_ms={library_ms:.5f} (torch.matmul bf16 dense), "
+              f"torch._int_mm {int_mm_ms} ms (int8, no group scales): neither "
+              f"the same function")
+        shapes.append({"shape": f"M={m} K={k} N={n} bf16", "k_n": (k, n), **t,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": library_ms,
+                       "int_mm_ms": int_mm_ms})
+        del copies
+    # the row: means over the three prefill shapes weighted by their launches
+    # (4 : 2 : 1 per layer, 96 : 48 : 24 per serve run), so that launches x
+    # (ms - bound_ms) is the main path's total; phase serve sets each shape's
+    # launches from the wrapper's count per shape
+    sites = [DECODE_SITES[tuple(sh["k_n"])] for sh in shapes]
+
+    def mean(key):
+        vals = [sh[key] for sh in shapes]
+        return None if None in vals else sum(
+            w * v for w, v in zip(sites, vals)) / sum(sites)
+
     records["fused_packed_matmul"] = {
         "name": "fused_packed_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_matmul.cu",
+        "body": "src/repro_torch/csrc/group_matmul_sm90.cuh",
         "replaces": "src/repro/kernels/fused_matmul.py:65",
-        "max_abs_err": worst, **t, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-        "library": "torch.matmul bf16 dense (M,K)x(K,N), not the same function",
-        "shape": f"M={m} K={k} N={n} (prefill form)"}
+        "max_abs_err": worst, **{key: mean(key) for key in (
+            "ms", "device_ms", "host_us", "plain_ms", "bound_ms",
+            "library_ms", "int_mm_ms")},
+        "bound_by": "bytes" if all(sh["bound_by"] == "bytes" for sh in shapes)
+        else "operations",
+        "library": "torch.matmul bf16 dense (M,K)x(K,N); int_mm_ms: "
+                   "torch._int_mm int8 (M,K)x(K,N) without group scales; "
+                   "neither the same function",
+        "shape": f"M={m} bf16 out at (K, N) (1024, 1024), (1024, 2816), "
+                 f"(2816, 1024), launch-weighted 4:2:1 (prefill form)",
+        "shapes": shapes}
 
 
-# qwen1.5-0.5b's decode linears (K, N): wq wk wv wo, wg wu, the MLP's wo;
-# and how many of a layer's 7 linears take each
-DECODE_SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024))
-DECODE_SITES = {(1024, 1024): 4, (1024, 2816): 2, (2816, 1024): 1}
+def _prefill_bound_ms(m, k, n, out_bytes=2):
+    """The int8 activations and their scales, the packed weight (codes +
+    meta words) read and the output written once each; 2 M N K int8
+    operations."""
+    nbytes = (m * k + m * (k // 64) * 4 + k * n // 2 + (k // 64) * n * 4
+              + m * n * out_bytes)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / INT8_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations"), nbytes
+
+
+def _promotion_floor_ms(m, k, n):
+    """A note printed beside the roofline (not a field of the kernel
+    records): the group-scaled sum's own CUDA-core floor. Every (row, column, 64-group) takes a subtract (the exact
+    float of its int32 dot), two multiplies and an add, each rounded alone;
+    at the f32 peak (67 TFLOP/s counts a fused multiply-add as two) that is
+    33.5 T such instructions a second."""
+    return m * n * (k // 64) * 4 / (F32_FLOPS_PER_S / 2) * 1e3
+
+
 
 
 def _decode_bound_ms(m, k, n, x_bytes=2, out_bytes=2):
@@ -513,11 +600,12 @@ def _group_matmul_bound_ms(m, k, n):
 
 
 def check_bfp_matmul(dev, records):
-    """Kernel 5 against its plain version (limit 1e-5 of the row's summed
-    group magnitudes; bitwise by design) at the LM head's decode shape, the
-    prefill shape and a ragged one; bitwise against kernel 2 on the absorbed
-    expansion of a packed weight; a NaN scale confined to its row and
-    column; then timed at the LM head's shape and the prefill shape."""
+    """Kernel 5 bitwise equal to its plain version at the LM head's decode
+    shape, the prefill shape, the tensor-core body's first M and a ragged
+    shape; bitwise against kernel 2 on the absorbed expansion of a packed
+    weight at M 8, 33, 300 and 3840; a NaN scale confined to its row and
+    column in either body; then timed at the LM head's shape and the
+    prefill shape."""
     import torch
     from repro_torch.core.engine import packed_to_absorbed
     from repro_torch.core.qlinear import PackedW
@@ -531,21 +619,20 @@ def check_bfp_matmul(dev, records):
     worst = 0.0
     for m, k, n, label in ((8, d, vocab, "LM head decode"),
                            (3840, 1024, 2816, "prefill"),
+                           (33, 1024, 1024, "the tensor-core body's first M"),
                            (37, 320, 1000, "ragged: M, N tails, K/64 = 5")):
         ai, asc, bi, bsc, _, _ = _lm_head_operands(m, k, n, gen, dev)
         y = bfp_matmul_quantized(ai, asc, bi, bsc)
         ref = bfp_matmul_quantized_plain(ai, asc, bi, bsc)
-        rowabs = bfp_matmul_quantized_plain(ai.abs(), asc.abs(), bi.abs(), bsc.abs())
         torch.cuda.synchronize()
         err = (y - ref).abs()
         worst = max(worst, float(err.max()))
-        check(bool((err <= 1e-5 * rowabs + 1e-30).all()),
-              f"bfp_matmul_quantized M={m} K={k} N={n}: max |d| "
-              f"{float(err.max())} beyond 1e-5 of the row abs sum")
-        print(f"  bfp_matmul_quantized {label} M={m} K={k} N={n}: max |d| "
-              f"{float(err.max()):.3e} (bitwise: "
-              f"{torch.equal(y.view(torch.int32), ref.view(torch.int32))})")
-    for m in (8, 3840):
+        check(torch.equal(y.view(torch.int32), ref.view(torch.int32)),
+              f"bfp_matmul_quantized M={m} K={k} N={n}: not bitwise equal to "
+              f"the plain version (max |d| {float(err.max())})")
+        print(f"  bfp_matmul_quantized {label} M={m} K={k} N={n}: bitwise "
+              f"equal to the plain version")
+    for m in (8, 33, 300, 3840):
         w = (torch.randn(1024, 2816, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
         pw = PackedW.from_dense(w).to_kernel_layout()
         x = torch.randn(m, 1024, generator=gen, device=dev).to(torch.bfloat16)
@@ -558,18 +645,19 @@ def check_bfp_matmul(dev, records):
               f"bitwise equal to fused_packed_matmul on pw")
         print(f"  bfp_matmul_quantized on packed_to_absorbed(pw) M={m} K=1024 "
               f"N=2816: bitwise equal to fused_packed_matmul on pw")
-    ai, asc, bi, bsc, _, _ = _lm_head_operands(8, 256, 200, gen, dev)
-    asc[3, 2] = float("nan")
-    bsc[1, 130] = float("nan")
-    y = bfp_matmul_quantized(ai, asc, bi, bsc)
-    want = torch.zeros_like(y, dtype=torch.bool)
-    want[3, :] = True
-    want[:, 130] = True
-    torch.cuda.synchronize()
-    check(torch.equal(y.isnan(), want), "bfp_matmul_quantized: a NaN scale "
-          "reached outputs outside its row and column")
+    for m in (8, 300):
+        ai, asc, bi, bsc, _, _ = _lm_head_operands(m, 256, 200, gen, dev)
+        asc[3, 2] = float("nan")
+        bsc[1, 130] = float("nan")
+        y = bfp_matmul_quantized(ai, asc, bi, bsc)
+        want = torch.zeros_like(y, dtype=torch.bool)
+        want[3, :] = True
+        want[:, 130] = True
+        torch.cuda.synchronize()
+        check(torch.equal(y.isnan(), want), f"bfp_matmul_quantized M={m}: a "
+              f"NaN scale reached outputs outside its row and column")
     print("  bfp_matmul_quantized: NaN a_scale -> its row only, NaN b_scale -> "
-          "its column only")
+          "its column only (M 8 and 300)")
 
     rows = {}
     for m, k, n, copies in ((8, d, vocab, 3), (3840, 1024, 2816, 8)):
@@ -581,10 +669,12 @@ def check_bfp_matmul(dev, records):
         bound_ms, bound_by, nbytes = _group_matmul_bound_ms(m, k, n)
         rows[m] = dict(t, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
+        floor = (f" promotion floor {_promotion_floor_ms(m, k, n):.6f} ms"
+                 if m > 32 else "")
         print(f"  bfp_matmul_quantized M={m} K={k} N={n}: {_times(t)} "
               f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}: "
-              f"{nbytes} B) library_ms={library_ms:.5f} (torch.matmul bf16 "
-              f"dense, not the same function)")
+              f"{nbytes} B){floor} library_ms={library_ms:.5f} (torch.matmul "
+              f"bf16 dense, not the same function)")
         del ops, args
     records["bfp_matmul_quantized"] = {
         "name": "bfp_matmul_quantized", "route": "cuda",
@@ -1037,9 +1127,30 @@ def phase_serve(dev, seed, records):
     for name, n in launches.items():
         if n:
             records.setdefault(name, {})["launches"] = n
-    for sh in records["fused_decode_matmul"].get("shapes", []):
-        sh["launches"] = (cfg.n_layers * steps * DECODE_SITES[tuple(sh["k_n"])]
-                          if sh["shape"].startswith("M=8 ") else 0)
+    # each shape's launches as the wrappers counted them in this run; every
+    # matmul launch of the run at one of the timed shapes, the row's sites
+    # ratio held, and the forms' totals the per-shape sums
+    per_shape = dict(build.SHAPE_LAUNCHES)
+    for name, m, rec in (("fused_decode_matmul", batch, "fused_decode_matmul"),
+                         ("fused_packed_matmul", batch * prompt,
+                          "fused_packed_matmul")):
+        counted = {key[1]: n for key, n in per_shape.items() if key[0] == name}
+        for sh in records[rec].get("shapes", []):
+            k, n = sh["k_n"]
+            sh["launches"] = counted.get((m, k, n), 0) if sh["shape"].startswith(
+                f"M={m} ") else 0
+        timed_n = sum(sh["launches"] for sh in records[rec].get("shapes", []))
+        print(f"  {name} launches per (M, K, N): {counted}")
+        check(sum(counted.values()) == timed_n == (
+            launches[name] if name == "fused_decode_matmul" else
+            launches[name] - launches["fused_decode_matmul"]),
+            f"{name}: launches per shape {counted} do not sum to the run's "
+            f"count, or fall outside the timed shapes")
+        check(counted == {(m, k, n): cfg.n_layers * (steps if name ==
+                          "fused_decode_matmul" else 1) * DECODE_SITES[(k, n)]
+                          for k, n in DECODE_SHAPES},
+              f"{name}: launches per shape {counted} are not the layers' "
+              f"4 : 2 : 1")
     # the kernel 2 row is its prefill form; both forms count under its name
     records["fused_packed_matmul"]["launches"] = (
         launches["fused_packed_matmul"] - launches["fused_decode_matmul"])

@@ -175,7 +175,9 @@ def _fused_packed_matmul(x, w: PackedW, ectx: EngineCtx):
         y = fused_decode_matmul(x2.contiguous(), codes_km, meta_km, out_dtype)
         return y.reshape(lead + (n,))
     ai, asc = hif4_quantize(x2.contiguous())
-    y = fused_packed_matmul(ai, asc, codes_km, meta_km)
+    # the kernel writes bf16 or f32 itself (bitwise the cast of its f32 sum)
+    kernel_dtype = out_dtype if out_dtype == torch.bfloat16 else torch.float32
+    y = fused_packed_matmul(ai, asc, codes_km, meta_km, kernel_dtype)
     return y.reshape(lead + (n,)).to(out_dtype)
 
 
@@ -186,8 +188,8 @@ def packed_dispatch_info(quant: QuantConfig, w: PackedW, *, decode_m: int,
     reference's per-regime tiles. ``*_kernel`` names the CUDA kernel each
     regime launches and what its ``*_tiles`` tuple holds: the decode form's
     launch plan (rows, column tile, CTAs splitting K) for at most
-    ``DECODE_M_MAX`` rows, else the prefill form's tiles (BM, BN, groups per
-    step)."""
+    ``DECODE_M_MAX`` rows, else the prefill form's plan (BM, BN, ring stages
+    of one 64-group; ``bfp_matmul.prefill_plan``)."""
     k, n = w.shape2d
     probe = torch.empty((decode_m, k), dtype=torch.bfloat16, device="meta")
     none = {"decode_blocks": None, "prefill_blocks": None,
@@ -214,7 +216,7 @@ def _cuda_plan(m: int, k: int, n: int) -> tuple:
         plan = decode_plan(m, k, n)
         return ("fused_decode_matmul (M, BN, K split)",
                 (m, plan.tile_n, plan.split))
-    return "fused_packed_matmul (BM, BN, groups)", cuda_tiles(m)
+    return "fused_packed_matmul (BM, BN, stages)", cuda_tiles(m)
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,11 @@
 //
 // What bounds it on the H100: at decode (M <= 32, the LM head) the bytes of
 // the int8 weight (1 B/value, plus 1/16 B of scales); at prefill M the int8
-// operations. The CTA body is group_matmul.cuh's, shared with kernel 2, so
-// kernel 5 on packed_to_absorbed(pw) is bitwise kernel 2 on pw; this file
-// adds the loader that reads B's int8 words and f32 scales. At decode the N
+// operations. The CTA bodies are group_matmul.cuh's (M <= 32) and
+// group_matmul_sm90.cuh's (M > 32, int8 tensor cores), shared with kernel
+// 2, so kernel 5 on packed_to_absorbed(pw) is bitwise kernel 2 on pw; this
+// file adds the loader that reads B's int8 words and f32 scales (the
+// prefill body copies them into its B tile as they are). At decode the N
 // axis alone gives N/32 CTAs (4 748 for the LM head).
 #include "group_matmul.cuh"
 
@@ -25,6 +27,29 @@ namespace {
 struct Int8B {
   const int8_t* b;                    // b[n * K + k]
   const float* scales;                // scales[n * (K/64) + g]
+
+  // the prefill body: columns arrive in the B tile as they are
+  static constexpr int kRawBytes = 0;
+  static constexpr bool kExpands = false;
+
+  // cp.async of group g's 64 bytes of each column (16-byte pieces into the
+  // swizzled tile) and its scale, zero past the N edge
+  __device__ __forceinline__ void issue(uint8_t*, uint8_t* btile, float* bs,
+                                        int n0, int g, int N, int K,
+                                        int t) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = t + 128 * j, c = i >> 2, ch = i & 3, n = n0 + c;
+      sm90::cp_async16(
+          btile + sm90::sw64(c, ch),
+          b + static_cast<size_t>(min(n, N - 1)) * K + g * 64 + ch * 16,
+          n < N ? 16 : 0);
+    }
+    const int n = n0 + t;
+    sm90::cp_async4(bs + t,
+                    scales + static_cast<size_t>(min(n, N - 1)) * (K / 64) + g,
+                    n < N ? 4 : 0);
+  }
 
   template <int BN, int GPI, int kThreads, int kStride>
   __device__ __forceinline__ void stage(int32_t (*s_b)[kStride],
@@ -53,8 +78,9 @@ struct Int8B {
 extern "C" int bfp_matmul_quantized(const void* a, const void* a_scales,
                                     const void* b, const void* b_scales,
                                     void* out, int M, int N, int K, int regime,
-                                    void* stream) {
+                                    const int* plan, void* stream) {
   const Int8B loader{static_cast<const int8_t*>(b),
                      static_cast<const float*>(b_scales)};
-  return launch_group_matmul(loader, a, a_scales, out, M, N, K, regime, stream);
+  return launch_group_matmul(loader, a, a_scales, out, M, N, K, regime,
+                             plan, 0, stream);
 }

@@ -1,8 +1,8 @@
-// The CTA body shared by kernel 2 (fused_packed_matmul, fused_matmul.cu)
+// The CTA bodies shared by kernel 2 (fused_packed_matmul, fused_matmul.cu)
 // and kernel 5 (bfp_matmul_quantized, bfp_matmul.cu): a group-scaled int8
-// matmul, templated over the loader of the B tile.
+// matmul, templated over the loader of the B tile and the output type.
 //
-//   out (M, N) f32 = sum over 64-groups g, in group order, of
+//   out (M, N) = sum over 64-groups g, in group order, of
 //       (float(int32 dot_g(a[m], b[:, n])) * a_scale[m, g]) * b_scale[g, n]
 //
 // a (M, K) int8 row-major with a_scales (M, K/64) f32. The loader stages,
@@ -13,9 +13,9 @@
 // bitwise kernel 2 on it, in either of kernel 2's forms, because all three
 // compute each output in one order: exact int32 group dots, then
 // (dot * a_scale) * b_scale rounded to f32, summed in group order from 0.0f
-// with no contracted multiply-add. Here one CTA body gives it; the decode
-// form (fused_decode_matmul.cu: its own body, kernel 1 as its prologue)
-// keeps the same order per output.
+// with no contracted multiply-add. Here one CTA body per regime gives it
+// to both kernels; the decode form (fused_decode_matmul.cu: its own body,
+// kernel 1 as its prologue) keeps the same order per output.
 //
 // One CTA per (BM x BN) output tile walks the whole K axis in a loop (the
 // TPU's sequential K grid axis with its revisited output block becomes
@@ -25,19 +25,22 @@
 // the plain PyTorch version (kernels/bfp_matmul.py) gives the same bits.
 // A NaN scale reaches exactly the outputs whose row or column uses it: no
 // group is skipped. Shared rows are padded to an odd number of words so the
-// column-wise reads do not conflict. Simple and right first: no TMA, no
-// tensor cores, no multi-stage pipeline.
+// column-wise reads do not conflict. This body serves regime 0 (M <= 32);
+// regime 1 (M > 32, prefill) runs group_matmul_sm90.cuh's body on the int8
+// tensor cores, in the same order per output. Loaders give both bodies
+// their B tiles: `stage` here, `issue` / `expand` there.
 #pragma once
 
+#include "group_matmul_sm90.cuh"
 #include "hif4_common.cuh"
 
 namespace {
 
-template <int BM, int BN, int TM, int TN, int GPI, class Loader>
+template <int BM, int BN, int TM, int TN, int GPI, class Loader, typename TOut>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     group_matmul_kernel(Loader b, const int8_t* __restrict__ a,
                         const float* __restrict__ a_scales,
-                        float* __restrict__ out, int M, int N, int K) {
+                        TOut* __restrict__ out, int M, int N, int K) {
   constexpr int kThreads = (BM / TM) * (BN / TN);
   constexpr int kTX = BN / TN;         // threads along N
   constexpr int kRowM = BM / TM;       // row stride of a thread's outputs
@@ -120,39 +123,54 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + j * kTX;
-      if (n < N) out[static_cast<size_t>(m) * N + n] = acc[i][j];
+      if (n < N) sm90::store1(out + static_cast<size_t>(m) * N + n, acc[i][j]);
     }
   }
 }
 
-template <int BM, int BN, int TM, int TN, int GPI, class Loader>
+template <int BM, int BN, int TM, int TN, int GPI, class Loader, typename TOut>
 int launch_tiles(const Loader& b, const void* a, const void* a_scales,
                  void* out, int M, int N, int K, void* stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  group_matmul_kernel<BM, BN, TM, TN, GPI, Loader>
+  group_matmul_kernel<BM, BN, TM, TN, GPI, Loader, TOut>
       <<<grid, (BM / TM) * (BN / TN), 0, static_cast<cudaStream_t>(stream)>>>(
           b, static_cast<const int8_t*>(a), static_cast<const float*>(a_scales),
-          static_cast<float*>(out), M, N, K);
+          static_cast<TOut*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class Loader, typename TOut>
+int launch_regime(const Loader& b, const void* a, const void* a_scales,
+                  void* out, int M, int N, int K, int regime, const int* plan,
+                  void* stream) {
+  if (regime == 0) {
+    if (M <= 16)
+      return launch_tiles<16, 32, 1, 2, 4, Loader, TOut>(b, a, a_scales, out,
+                                                         M, N, K, stream);
+    return launch_tiles<32, 32, 2, 2, 4, Loader, TOut>(b, a, a_scales, out, M,
+                                                       N, K, stream);
+  }
+  return sm90::launch<Loader, TOut>(b, a, a_scales, out, M, N, K, plan,
+                                    stream);
+}
+
 // regime 0 = decode (M <= 32: one M-tile, narrow N-tiles so the weight
-// streams through many CTAs), regime 1 = prefill (square 64 x 64 tiles).
-// Empty work is refused (the wrappers raise before it gets here).
+// streams through many CTAs, the __dp4a body above), regime 1 = prefill
+// (M > 32: the tensor-core body, whose launch plan the caller passes as
+// sm90::kPlanFields ints, NULL for regime 0). The output is f32, or bf16 rounded from the same f32 value.
+// Empty work and a regime that does not fit M are refused (the wrappers
+// raise before it gets here).
 template <class Loader>
 int launch_group_matmul(const Loader& b, const void* a, const void* a_scales,
                         void* out, int M, int N, int K, int regime,
-                        void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 64)
+                        const int* plan, int out_bf16, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 64 || regime != (M > 32 ? 1 : 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (regime == 0) {
-    if (M <= 16)
-      return launch_tiles<16, 32, 1, 2, 4>(b, a, a_scales, out, M, N, K,
-                                           stream);
-    return launch_tiles<32, 32, 2, 2, 4>(b, a, a_scales, out, M, N, K,
-                                         stream);
-  }
-  return launch_tiles<64, 64, 4, 4, 2>(b, a, a_scales, out, M, N, K, stream);
+  if (out_bf16)
+    return launch_regime<Loader, __nv_bfloat16>(b, a, a_scales, out, M, N, K,
+                                                regime, plan, stream);
+  return launch_regime<Loader, float>(b, a, a_scales, out, M, N, K, regime,
+                                      plan, stream);
 }
 
 }  // namespace

@@ -9,9 +9,12 @@ bfp_matmul_quantized`` as the CUDA kernel ``csrc/bfp_matmul.cu``:
   b_ints (K, N) int8, b_scales (K/64, N) f32 -> (M, N) f32
       = sum over 64-groups g of float(int32 dot_g) * a_scale * b_scale
 
-The CUDA body (``csrc/group_matmul.cuh``) is kernel 2's, with a loader that
-reads int8 words instead of expanding packed codes, so kernel 5 on the
-absorbed expansion of a packed weight is bitwise kernel 2 on it. The kernel
+The CUDA bodies are kernel 2's, with a loader that reads int8 words instead
+of expanding packed codes, so kernel 5 on the absorbed expansion of a packed
+weight is bitwise kernel 2 on it: ``csrc/group_matmul.cuh`` (``__dp4a``) for
+at most ``DECODE_M_MAX`` rows, ``csrc/group_matmul_sm90.cuh`` (int8
+``wgmma``, a warp-specialized ring of one-group stages) above, whose launch
+plan is :func:`prefill_plan`. The kernel
 reads B K-contiguous per column: a transposed view of a contiguous (N, K)
 tensor (what the engine passes: ``hif4_quantize(w.T)`` transposed back)
 launches on its storage without a copy; a row-major (K, N) operand is
@@ -28,6 +31,7 @@ the dispatch report; :func:`cuda_tiles` names the CUDA kernels' tiles.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -58,13 +62,73 @@ def select_block_sizes(M: int, N: int, K: int) -> tuple[int, int, int]:
             _fit(K, min(512, K), GROUP))
 
 
+# The prefill body (csrc/group_matmul_sm90.cuh, M > DECODE_M_MAX): one CTA
+# of 384 threads per PREFILL_TILE_M x PREFILL_TILE_N output tile, a ring of
+# PREFILL_STAGES stages of one 64-group each, PREFILL_LOOKAHEAD groups of
+# copies in flight. Mirrored from the C++ constants; the launcher refuses a
+# plan that differs from its own in any field.
+PREFILL_TILE_M = 128
+PREFILL_TILE_N = 128
+PREFILL_STAGES = 6
+PREFILL_LOOKAHEAD = 4
+SMEM_PER_CTA_MAX = 232_448          # 227 KB of dynamic shared memory per CTA
+# a stage's raw bytes per loader: kernel 2's 32 code rows of the tile's
+# columns and their meta words; kernel 5's columns go straight to the tile
+_RAW_BYTES = {"packed": 32 * PREFILL_TILE_N + 4 * PREFILL_TILE_N, "int8": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillPlan:
+    """The launch of the prefill body: ``tile_m`` x ``tile_n`` output tiles,
+    a ring of ``stages`` stages of ``stage_bytes`` (A and B tiles of 64
+    bytes a row, their scales, the loader's raw bytes) with ``lookahead``
+    groups of copies in flight, ``smem_bytes`` of dynamic shared memory in
+    all. The launcher takes every field (:meth:`c_plan`) and refuses a plan
+    that differs from its constants."""
+
+    tile_m: int
+    tile_n: int
+    stages: int
+    lookahead: int
+    stage_bytes: int
+    smem_bytes: int
+
+    def c_plan(self):
+        """The fields as the launcher's ``const int* plan``, in its order."""
+        fields = dataclasses.astuple(self)
+        return (ctypes.c_int * len(fields))(*fields)
+
+
+def _round(nbytes: int, quantum: int) -> int:
+    return -(-nbytes // quantum) * quantum
+
+
+def prefill_plan(m: int, k: int, n: int, loader: str = "packed") -> PrefillPlan:
+    """csrc/group_matmul_sm90.cuh's carve-up for ``loader`` ("packed": kernel
+    2, "int8": kernel 5): stages 1024-byte aligned (the 64-byte swizzle
+    repeats every 512 B and keys on address bits), 1024 B to align the
+    dynamic base, 16 B of mbarriers per stage."""
+    if m <= DECODE_M_MAX or k < GROUP or k % GROUP or n < 1:
+        raise ValueError(f"the prefill body takes M > {DECODE_M_MAX}, K % 64 "
+                         f"== 0 and N >= 1, got (M, K, N) = {(m, k, n)}")
+    tm, tn = PREFILL_TILE_M, PREFILL_TILE_N
+    stage = _round(tm * GROUP + tn * GROUP + 4 * tm + 4 * tn
+                   + _RAW_BYTES[loader], 1024)
+    smem = 1024 + PREFILL_STAGES * stage + _round(2 * PREFILL_STAGES * 8, 128)
+    if smem > SMEM_PER_CTA_MAX:
+        raise ValueError(f"the prefill plan needs {smem} B of shared memory")
+    return PrefillPlan(tm, tn, PREFILL_STAGES, PREFILL_LOOKAHEAD, stage, smem)
+
+
 def cuda_tiles(M: int) -> tuple[int, int, int]:
-    """(BM, BN, 64-groups staged per step) of kernels 2 and 5 for this M."""
+    """Kernels 2 and 5's tiles for this M: (BM, BN, 64-groups staged per
+    step) of the ``__dp4a`` body up to ``DECODE_M_MAX`` rows, (BM, BN, ring
+    stages of one 64-group) of the tensor-core body above."""
     if M <= 16:
         return 16, 32, 4
     if M <= DECODE_M_MAX:
         return 32, 32, 4
-    return 64, 64, 2
+    return PREFILL_TILE_M, PREFILL_TILE_N, PREFILL_STAGES
 
 
 def _group_dot(a_ints: torch.Tensor, b_ints: torch.Tensor, g: int
@@ -146,15 +210,18 @@ def bfp_matmul_quantized(a_ints, a_scales, b_ints, b_scales) -> torch.Tensor:
         raise ValueError("bfp_matmul_quantized needs contiguous a_ints, a_scales")
     b_nk = _k_contiguous(b_ints, "b_ints")
     bs_nk = _k_contiguous(b_scales, "b_scales")
-    if a_ints.data_ptr() % 4 or b_nk.data_ptr() % 4:
-        raise ValueError("bfp_matmul_quantized: int8 operands must be 4-byte aligned")
+    regime = 0 if M <= DECODE_M_MAX else 1
+    align = 16 if regime else 4         # the prefill body's 16-byte copies
+    if a_ints.data_ptr() % align or b_nk.data_ptr() % align:
+        raise ValueError(f"bfp_matmul_quantized: int8 operands must be "
+                         f"{align}-byte aligned")
+    plan = prefill_plan(M, K, N, "int8").c_plan() if regime else None
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = build.function("bfp_matmul", "bfp_matmul_quantized",
-                        [p, p, p, p, p, i, i, i, i, p])
-    regime = 0 if M <= DECODE_M_MAX else 1
+                        [p, p, p, p, p, i, i, i, i, ctypes.POINTER(i), p])
     rc = fn(a_ints.data_ptr(), a_scales.data_ptr(), b_nk.data_ptr(),
-            bs_nk.data_ptr(), out.data_ptr(), M, N, K, regime,
+            bs_nk.data_ptr(), out.data_ptr(), M, N, K, regime, plan,
             build.stream_ptr(dev))
-    build.check("bfp_matmul", "bfp_matmul_quantized", rc)
+    build.check("bfp_matmul", "bfp_matmul_quantized", rc, (M, K, N))
     return out

@@ -17,7 +17,9 @@ loaded. Nothing here runs at import time.
 
 Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel launch
 and nowhere else), so a run can show that its main path went through the
-kernels.
+kernels; the matmul wrappers also count them per (M, K, N) in
+:data:`SHAPE_LAUNCHES`, so a run can show which shapes its main path gave
+them.
 """
 from __future__ import annotations
 
@@ -41,16 +43,23 @@ LAUNCHES: dict = {"hif4_quantize": 0, "fused_packed_matmul": 0,
                   "fused_decode_matmul": 0, "fused_decode_attention": 0,
                   "fused_paged_decode_attention": 0, "bfp_matmul_quantized": 0}
 
+# (kernel, (M, K, N)) -> launches, where the wrapper names its shape
+SHAPE_LAUNCHES: dict = {}
+
 _LIBS: dict = {}
 
 
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    SHAPE_LAUNCHES.clear()
 
 
-def count_launch(kernel: str) -> None:
+def count_launch(kernel: str, shape: tuple | None = None) -> None:
     LAUNCHES[kernel] += 1
+    if shape is not None:
+        key = (kernel, tuple(shape))
+        SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
 
 
 def build_dir() -> Path:
@@ -134,12 +143,14 @@ def function(lib_name: str, fn_name: str, argtypes: list,
     return fn
 
 
-def check(lib_name: str, kernel: str, rc: int) -> None:
-    """Raise if a launch returned a CUDA error; count it otherwise."""
+def check(lib_name: str, kernel: str, rc: int, shape: tuple | None = None
+          ) -> None:
+    """Raise if a launch returned a CUDA error; count it otherwise (per
+    ``shape`` too, where the wrapper gives one)."""
     if rc != 0:
         msg = library(lib_name).repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")
-    count_launch(kernel)
+    count_launch(kernel, shape)
 
 
 def stream_ptr(device) -> int:

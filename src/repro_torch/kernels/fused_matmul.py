@@ -6,14 +6,17 @@ fused_packed_matmul`` as the CUDA kernel ``csrc/fused_matmul.cu``:
   a_ints (M, K) int8, a_scales (M, K/64) f32,
   codes_km (K/2, N) uint8, meta_km (K/64, N) int32 (uint32 bits) -> (M, N) f32
 
-The CTA body (``csrc/group_matmul.cuh``) is kernel 5's, with a loader that
-expands the packed tile to absorbed int8 in shared memory. Each 64-group's
+The CTA bodies are kernel 5's, with a loader that expands the packed tile
+to absorbed int8 in shared memory: ``csrc/group_matmul.cuh`` (``__dp4a``)
+for at most ``DECODE_M_MAX`` rows, ``csrc/group_matmul_sm90.cuh`` (int8
+``wgmma``; launch plan ``bfp_matmul.prefill_plan``) above. Each 64-group's
 dot is exact in int32 and rescaled in f32 by ``a_scale * b_scale``, summed
-in group order. :func:`fused_packed_matmul_plain` is the plain PyTorch
-version: the weight expanded by ``hif4.absorbed_int_km`` (the reference's
-in-kernel unpack), then kernel 5's plain version, so kernel and plain
-version agree bitwise; :func:`fused_packed_matmul` takes it only for CPU
-tensors.
+in group order, and written in ``out_dtype`` (f32, or bf16 rounded from
+the f32 value as ``.to()`` rounds it). :func:`fused_packed_matmul_plain` is
+the plain PyTorch version: the weight expanded by ``hif4.absorbed_int_km``
+(the reference's in-kernel unpack), then kernel 5's plain version, then the
+cast, so kernel and plain version agree bitwise; :func:`fused_packed_matmul`
+takes it only for CPU tensors.
 
 The decode form (M <= ``DECODE_M_MAX`` rows) is the CUDA kernel
 ``csrc/fused_decode_matmul.cu``, with kernel 1 folded in as its prologue:
@@ -39,15 +42,23 @@ from repro_torch.kernels import build
 from repro_torch.kernels.bfp_matmul import (
     DECODE_M_MAX,
     GROUP,
+    SMEM_PER_CTA_MAX,
     bfp_matmul_quantized_plain,
+    prefill_plan,
 )
 from repro_torch.kernels.hif4_quant import absorbed_activation
 
 
-def fused_packed_matmul_plain(a_ints, a_scales, codes_km, meta_km):
-    """Plain version: unpack the packed weight, then kernel 5's plain version."""
-    return bfp_matmul_quantized_plain(a_ints, a_scales,
-                                      *hif4.absorbed_int_km(codes_km, meta_km))
+_FLOATS = (torch.bfloat16, torch.float32)
+
+
+def fused_packed_matmul_plain(a_ints, a_scales, codes_km, meta_km,
+                              out_dtype=torch.float32):
+    """Plain version: unpack the packed weight, then kernel 5's plain
+    version, then the cast to ``out_dtype``."""
+    return bfp_matmul_quantized_plain(
+        a_ints, a_scales, *hif4.absorbed_int_km(codes_km, meta_km)
+    ).to(out_dtype)
 
 
 def _check(a_ints, a_scales, codes_km, meta_km):
@@ -74,27 +85,39 @@ def _check(a_ints, a_scales, codes_km, meta_km):
     return M, K, N
 
 
-def fused_packed_matmul(a_ints, a_scales, codes_km, meta_km) -> torch.Tensor:
-    """(M, N) f32: the CUDA kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+def fused_packed_matmul(a_ints, a_scales, codes_km, meta_km,
+                        out_dtype=torch.float32) -> torch.Tensor:
+    """(M, N) in ``out_dtype`` (f32 or bf16): the CUDA kernel on CUDA
+    tensors (M > ``DECODE_M_MAX``: the tensor-core body), the plain version
+    on CPU tensors."""
     M, K, N = _check(a_ints, a_scales, codes_km, meta_km)
+    if out_dtype not in _FLOATS:
+        raise TypeError(f"fused_packed_matmul gives bf16/f32, not {out_dtype}")
     dev = a_ints.device
     if dev.type == "cpu":
-        return fused_packed_matmul_plain(a_ints, a_scales, codes_km, meta_km)
+        return fused_packed_matmul_plain(a_ints, a_scales, codes_km, meta_km,
+                                         out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"fused_packed_matmul: unsupported device {dev}")
+    if M == 0 or N == 0:
+        raise ValueError(f"fused_packed_matmul: no work for (M, K, N) = "
+                         f"{(M, K, N)}")
     for t in (a_ints, a_scales, codes_km, meta_km):
         if not t.is_contiguous():
             raise ValueError("fused_packed_matmul needs contiguous operands")
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    regime = 0 if M <= DECODE_M_MAX else 1
+    if regime and (a_ints.data_ptr() % 16 or codes_km.data_ptr() % 16):
+        raise ValueError("fused_packed_matmul: a_ints and codes_km must be "
+                         "16-byte aligned")
+    plan = prefill_plan(M, K, N, "packed").c_plan() if regime else None
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = build.function("fused_matmul", "fused_packed_matmul",
-                        [p, p, p, p, p, i, i, i, i, p])
-    regime = 0 if M <= DECODE_M_MAX else 1
+                        [p, p, p, p, p, i, i, i, i, ctypes.POINTER(i), i, p])
     rc = fn(a_ints.data_ptr(), a_scales.data_ptr(), codes_km.data_ptr(),
-            meta_km.data_ptr(), out.data_ptr(), M, N, K, regime,
-            build.stream_ptr(dev))
-    build.check("fused_matmul", "fused_packed_matmul", rc)
+            meta_km.data_ptr(), out.data_ptr(), M, N, K, regime, plan,
+            int(out_dtype == torch.bfloat16), build.stream_ptr(dev))
+    build.check("fused_matmul", "fused_packed_matmul", rc, (M, K, N))
     return out
 
 
@@ -106,8 +129,6 @@ DECODE_TILE_N = 32          # columns per CTA: 16-byte code row pieces
 DECODE_MAX_SPLIT = 8        # the largest portable thread block cluster
 _DECODE_B_STRIDE = 17       # int32 words per expanded column
 H100_SMS = 132
-SMEM_PER_CTA_MAX = 232_448  # 227 KB of dynamic shared memory per CTA
-_FLOATS = (torch.bfloat16, torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +239,6 @@ def fused_decode_matmul(x, codes_km, meta_km, out_dtype=None) -> torch.Tensor:
             out.data_ptr(), M, N, K, plan.split, plan.smem_bytes,
             int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
             build.stream_ptr(dev))
-    build.check("fused_decode_matmul", "fused_decode_matmul", rc)
+    build.check("fused_decode_matmul", "fused_decode_matmul", rc, (M, K, N))
     build.count_launch("fused_packed_matmul")
     return out

@@ -8,11 +8,11 @@ random weights (``--seed``), prefills ``--batch`` x ``--prompt-len`` tokens,
 then times ``--steps`` decode steps with the host clock around work that ends
 in a device synchronize, and profiles two more with ``torch.profiler``
 (CPU + CUDA activities). Prints the step time, the device-busy share of the
-profiled window (sum of kernel time / wall time; overlapping kernels would
-overcount, the decode loop runs on one stream) and the top device kernels
-and host operators. With ``--kv-pages N`` the prefilled cache is cut into
-pages of 64 tokens and laid into a pool of N pages (one
-table row of distinct pages per slot, page 0 the scratch page), and the
+profiled window (the union of the device's activity intervals / wall time,
+:func:`device_activity`) and the top device kernels and host operators.
+With ``--kv-pages N`` the prefilled cache is cut into pages of 64 tokens
+and laid into a pool of N pages (one table row of distinct pages per slot,
+page 0 the scratch page), and the
 step decodes through the page table (kernel 4) as the paged scheduler's
 steps do. CUDA only: a time taken on the CPU is not a device time.
 """
@@ -52,6 +52,29 @@ def paged_cache(cfg, cache: dict, batch: int, n_pages: int, P: int, dev) -> dict
                          device=dev).reshape(batch, maxp)
     pos = torch.full((batch,), int(cache["pos"]), dtype=torch.int32, device=dev)
     return {"kv": pool, "pages": table, "pos": pos}
+
+
+def device_activity(events) -> tuple[float, list]:
+    """Device busy ms of profiled ``events`` (``prof.events()``): the union
+    of the device's own activity intervals (kernels, copies, sets), so a
+    PyTorch operator and the kernels it launched are not counted twice, nor
+    overlapping kernels; and (name, count, ms) per device activity name,
+    largest first."""
+    spans, per = [], {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        count, us = per.get(e.name, (0, 0.0))
+        per[e.name] = (count + 1, us + end - start)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    return busy_us / 1e3, sorted(((name, c, us / 1e3) for name, (c, us)
+                                  in per.items()), key=lambda x: -x[2])
 
 
 def main(argv=None) -> int:
@@ -110,23 +133,16 @@ def main(argv=None) -> int:
             token, cache = step(token, cache)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    busy_ms, kernels = device_activity(prof.events())
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy = sum(dev_us(e) for e in events)
-    n_kernels = sum(e.count for e in events if dev_us(e) > 0)
+    n_kernels = sum(c for _, c, _ in kernels)
     print(f"profiled 2 steps: wall {wall_us / 2e3:.2f} ms/step, device busy "
-          f"{busy / 2e3:.2f} ms/step ({100 * busy / wall_us:.1f}% of wall; "
-          f"idle {100 - 100 * busy / wall_us:.1f}%), "
+          f"{busy_ms / 2:.2f} ms/step ({100 * busy_ms * 1e3 / wall_us:.1f}% of "
+          f"wall; idle {100 - 100 * busy_ms * 1e3 / wall_us:.1f}%), "
           f"{n_kernels / 2:.0f} device ops/step")
     print("top device time (per step):")
-    for e in sorted(events, key=dev_us, reverse=True)[:args.top]:
-        if dev_us(e) <= 0:
-            break
-        print(f"  {dev_us(e) / 2e3:9.3f} ms  {e.count / 2:6.0f}x  {e.key[:90]}")
+    for name, count, ms in kernels[:args.top]:
+        print(f"  {ms / 2:9.3f} ms  {count / 2:6.0f}x  {name[:90]}")
     print("top host time (self, per step):")
     for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:args.top]:
         print(f"  {e.self_cpu_time_total / 2e3:9.3f} ms  {e.count / 2:6.0f}x  {e.key[:90]}")

@@ -5,12 +5,16 @@ JAX, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: hif4_quantize bitwise; fused_packed_matmul within 1e-5 of the
-summed group magnitudes (its plain version is kernel 5's on the expanded
-weight, so it is bitwise in fact); bfp_matmul_quantized bitwise to its
-plain version (same group order, no contracted multiply-add) and to
-fused_packed_matmul on the absorbed expansion of a packed weight (one CTA
-body); a NaN scale reaches exactly its row or column; fused_decode_attention
+Tolerances: hif4_quantize bitwise; fused_packed_matmul BITWISE equal to its
+plain version (kernel 5's on the expanded weight, then the cast), in f32
+and bf16 out, at the decode regime, at qwen1.5-0.5b's three prefill shapes
+(M = 3840: the tensor-core body), at M = 33 and 300 and at ragged (M, K,
+N) with N % 16 != 0 and K/64 = 5; a NaN meta word reaches only its column
+in either body; bfp_matmul_quantized bitwise to its plain version (same
+group order, no contracted multiply-add) and to fused_packed_matmul on the
+absorbed expansion of a packed weight (one CTA body per regime, at M = 8,
+33, 300 and 3840); a NaN scale reaches exactly its row or column in
+either body; fused_decode_attention
 rtol=2^-7, atol=1e-3 (f32 sum orders and ``expf`` differ from the plain
 version); an E6M2 0xFF meta word yields NaN in its slot only, as in the
 plain version. fused_paged_decode_attention within the same tolerance of
@@ -24,11 +28,13 @@ decode shapes, M in {1, 8, 16, 32}, bf16 and f32 in and out, and to kernel 5
 on the absorbed expansion of the weight; a NaN meta word reaches only its
 column; one launch per decode linear of the engine.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import engine, hif4, kvcache
+from repro_torch.core import engine, kvcache
 from repro_torch.core.qlinear import PackedW
 from repro_torch.kernels import bfp_matmul as TB
 from repro_torch.kernels import build
@@ -45,6 +51,15 @@ def cuda():
         pytest.skip("needs a CUDA card (the kernels have no interpret mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+DT = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _packed(k, n, device, seed=18):
+    g = torch.Generator().manual_seed(seed)
+    w = (torch.randn(k, n, generator=g) * 0.02).to(torch.bfloat16).to(device)
+    return PackedW.from_dense(w).to_kernel_layout()
 
 
 def _act(seed, m, k, device):
@@ -65,18 +80,89 @@ def test_quantize_bitwise(cuda, m, k):
                                                ps.view(torch.int32))
 
 
-@pytest.mark.parametrize("m, k, n", [(8, 1024, 2816), (300, 2816, 1024)])
-def test_matmul_vs_plain(cuda, m, k, n):
+MATMUL_SHAPES = [(8, 1024, 2816), (300, 2816, 1024),      # (M, K, N)
+                 (3840, 1024, 1024), (3840, 1024, 2816), (3840, 2816, 1024),
+                 (33, 1024, 1024), (33, 320, 1000), (300, 320, 1000),
+                 (37, 320, 1000), (129, 192, 136)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("m, k, n", MATMUL_SHAPES)
+def test_matmul_vs_plain(cuda, m, k, n, out):
+    """Bitwise: the decode regime, the prefill shapes, the first M of the
+    tensor-core body, ragged M / N tails with N % 16 != 0 and K/64 = 5 (not a
+    multiple of anything the ring holds), and N % 16 == 0 with a partial
+    column tile."""
     g = torch.Generator().manual_seed(12)
     w = (torch.randn(k, n, generator=g) * 0.02).to(torch.bfloat16).to(cuda)
     pw = PackedW.from_dense(w).to_kernel_layout()
     ai, asc = TQ.absorbed_activation(_act(12, m, k, cuda))
+    build.reset_launches()
+    y = TM.fused_packed_matmul(ai, asc, pw.codes, pw.meta, DT[out])
+    assert build.LAUNCHES["fused_packed_matmul"] == 1
+    ref = TM.fused_packed_matmul_plain(ai, asc, pw.codes, pw.meta, DT[out])
+    assert y.dtype == DT[out]
+    assert torch.equal(_bits(y), _bits(ref))
+
+
+@pytest.mark.parametrize("m", [8, 33, 300])
+def test_matmul_nan_meta_reaches_only_its_column(cuda, m):
+    """An E6M2 0xFF meta word in the ragged last column tile (N = 1000),
+    in either body."""
+    pw = _packed(1024, 1000, cuda)
+    meta = pw.meta.clone()
+    meta[5, 997] |= -(1 << 24)
+    ai, asc = TQ.hif4_quantize(_act(24, m, 1024, cuda))
+    y = TM.fused_packed_matmul(ai, asc, pw.codes, meta)
+    want = torch.zeros_like(y, dtype=torch.bool)
+    want[:, 997] = True
+    assert torch.equal(y.isnan(), want)
+
+
+def test_prefill_form_refuses_misaligned_operands(cuda):
+    pw = _packed(256, 64, cuda)
+    ai, asc = TQ.hif4_quantize(_act(25, 40, 256, cuda))
+    buf = torch.empty(40 * 256 + 4, dtype=torch.int8, device=cuda)
+    shifted = buf[4:].view(40, 256)
+    shifted.copy_(ai)
+    build.reset_launches()
+    with pytest.raises(ValueError):                   # 4-byte aligned only
+        TM.fused_packed_matmul(shifted, asc, pw.codes, pw.meta)
+    with pytest.raises(TypeError):
+        TM.fused_packed_matmul(ai, asc, pw.codes, pw.meta, torch.float16)
+    assert build.LAUNCHES["fused_packed_matmul"] == 0
     y = TM.fused_packed_matmul(ai, asc, pw.codes, pw.meta)
-    ref = TM.fused_packed_matmul_plain(ai, asc, pw.codes, pw.meta)
-    b_ints, b_sc = hif4.absorbed_int_km(pw.codes, pw.meta)
-    abs_sum = TB.bfp_matmul_quantized_plain(ai.abs(), asc.abs(), b_ints.abs(),
-                                            b_sc.abs())
-    assert bool(((y - ref).abs() <= 1e-5 * abs_sum).all())
+    assert torch.equal(_bits(y), _bits(TM.fused_packed_matmul_plain(
+        ai, asc, pw.codes, pw.meta)))
+    assert build.SHAPE_LAUNCHES == {("fused_packed_matmul", (40, 256, 64)): 1}
+
+
+@pytest.mark.parametrize("field", ["tile_m", "tile_n", "stages", "lookahead",
+                                   "stage_bytes", "smem_bytes"])
+def test_prefill_launcher_refuses_a_plan_unlike_its_own(cuda, field, monkeypatch):
+    """Every field of the host plan is checked by the C launcher, so the
+    Python mirror cannot drift from the kernel's constants unseen."""
+    pw = _packed(256, 64, cuda)
+    ai, asc = TQ.hif4_quantize(_act(25, 40, 256, cuda))
+    bi, bsc = engine.packed_to_absorbed(pw)
+    real = TB.prefill_plan
+
+    def off(*args, **kwargs):
+        plan = real(*args, **kwargs)
+        return dataclasses.replace(plan, **{field: getattr(plan, field) + 1})
+
+    for mod in (TB, TM):
+        monkeypatch.setattr(mod, "prefill_plan", off)
+    build.reset_launches()
+    with pytest.raises(RuntimeError):
+        TM.fused_packed_matmul(ai, asc, pw.codes, pw.meta)
+    with pytest.raises(RuntimeError):
+        TB.bfp_matmul_quantized(ai, asc, bi, bsc)
+    assert sum(build.LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("hkv, rep, d, s", [(16, 1, 64, 512), (4, 2, 32, 160),
@@ -293,10 +379,12 @@ def _int8_operands(m, k, n, device, seed=15):
 
 
 @pytest.mark.parametrize("m, k, n", [(8, 1024, 151936), (3840, 1024, 2816),
-                                     (37, 320, 1000)])
+                                     (37, 320, 1000), (33, 1024, 1024),
+                                     (300, 2816, 1024)])
 def test_bfp_matmul_bitwise_vs_plain(cuda, m, k, n):
-    """The LM head's decode shape, the prefill shape, and a ragged one (M and
-    N tails, K/64 = 5 groups: not a multiple of the groups per step)."""
+    """The LM head's decode shape, the prefill shape, a ragged one (M and N
+    tails, K/64 = 5 groups: not a multiple of the groups per step), and the
+    tensor-core body's first M and a K of 44 groups."""
     ai, asc, bi, bsc = _int8_operands(m, k, n, cuda)
     build.reset_launches()
     y = TB.bfp_matmul_quantized(ai, asc, bi, bsc)
@@ -305,7 +393,7 @@ def test_bfp_matmul_bitwise_vs_plain(cuda, m, k, n):
     assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
 
 
-@pytest.mark.parametrize("m", [8, 300])
+@pytest.mark.parametrize("m", [8, 33, 300, 3840])
 def test_bfp_matmul_bitwise_vs_fused_matmul(cuda, m):
     g = torch.Generator().manual_seed(16)
     w = (torch.randn(1024, 2816, generator=g) * 0.02).to(torch.bfloat16).to(cuda)
@@ -316,8 +404,9 @@ def test_bfp_matmul_bitwise_vs_fused_matmul(cuda, m):
     assert torch.equal(y5.view(torch.int32), y2.view(torch.int32))
 
 
-def test_bfp_matmul_nan_scale_reaches_its_row_and_column_only(cuda):
-    ai, asc, bi, bsc = _int8_operands(8, 256, 200, cuda)
+@pytest.mark.parametrize("m", [8, 300])
+def test_bfp_matmul_nan_scale_reaches_its_row_and_column_only(cuda, m):
+    ai, asc, bi, bsc = _int8_operands(m, 256, 200, cuda)
     asc[3, 2] = float("nan")
     bsc[1, 130] = float("nan")                        # group 1 of column 130
     y = TB.bfp_matmul_quantized(ai, asc, bi, bsc)
@@ -362,17 +451,6 @@ def test_bfp_matmul_refuses_empty_work(cuda):
 # ---------------------------------------------------------------------------
 
 DECODE_SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024)]      # (K, N)
-DT = {"bf16": torch.bfloat16, "f32": torch.float32}
-
-
-def _packed(k, n, device, seed=18):
-    g = torch.Generator().manual_seed(seed)
-    w = (torch.randn(k, n, generator=g) * 0.02).to(torch.bfloat16).to(device)
-    return PackedW.from_dense(w).to_kernel_layout()
-
-
-def _bits(t):
-    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
 @pytest.mark.parametrize("out", ["bf16", "f32"])

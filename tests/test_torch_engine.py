@@ -134,8 +134,9 @@ def test_packed_dispatch_info_matches_reference(impl):
             # column tiles of 32, K = 256 split over its 4 groups
             assert it["decode_kernel"].startswith("fused_decode_matmul")
             assert it["decode_tiles"] == (8, 32, 4)
+            # the prefill form's plan (BM, BN, ring stages of one group)
             assert it["prefill_kernel"].startswith("fused_packed_matmul")
-            assert it["prefill_tiles"] == (64, 64, 2)
+            assert it["prefill_tiles"] == (128, 128, 6)
 
 
 @pytest.mark.parametrize("impl, hkv, dh", [("packed", 4, 32), ("qdq", 4, 32),
