@@ -6,7 +6,7 @@
 Phases (any failure ends the run with a nonzero exit):
 
 1. device  — a CUDA device, its name and power limit (nvidia-smi);
-2. build   — the CUDA kernels of src/repro_torch/csrc (five sources, six
+2. build   — the CUDA kernels of src/repro_torch/csrc (six sources, seven
              kernels), built with nvcc, one process per source in parallel;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes of the main paths, with times beside the least time
@@ -25,7 +25,12 @@ Phases (any failure ends the run with a nonzero exit):
              expansion of a packed weight; the decode form of kernel 2
              (kernel 1 as its prologue) bitwise against its plain version
              and kernel 5 at the three decode shapes, timed beside the pair
-             it replaces; kernels 3 and 4 also timed at a solo serve's
+             it replaces; kernel 5 (M <= 32: the decode body) bitwise at the
+             LM head and ragged shapes, and its decode form (the weight's
+             Algorithm 1 in its loader) bitwise against its plain version
+             and kernel 1 then kernel 5, timed at the LM head beside that
+             pair, with the bytes bound and Algorithm 1's issue floor
+             (cuobjdump); kernels 3 and 4 also timed at a solo serve's
              tiling and on the paged phase's ragged table (trailing
              scratch entries, partial pages), kernel 4 bitwise kernel 3 at
              block_kv = P at 1, 2, 3, 8 and 33 tiles, a slot of length 0
@@ -38,8 +43,9 @@ Phases (any failure ends the run with a nonzero exit):
              launch of the decode form each);
 5. pallas  — the same serve under impl pallas with a policy that quantizes
              the tied LM head (paper-iv's rules without its lm_head
-             exclusion): per logits call kernel 1 on the activations and on
-             the embedding, then kernel 5; weights at 5x the init's scale,
+             exclusion): per logits call (8 rows) kernel 1 on the
+             activations, then kernel 5's decode form, which quantizes the
+             embedding in its loader; weights at 5x the init's scale,
              so tokens vary; exact launch counts; the head at the last
              decode step bitwise equal to its plain versions; then the same
              weights under nvfp4-baseline (kernels 2 and 5 never run), the
@@ -601,10 +607,11 @@ def _group_matmul_bound_ms(m, k, n):
 
 def check_bfp_matmul(dev, records):
     """Kernel 5 bitwise equal to its plain version at the LM head's decode
-    shape, the prefill shape, the tensor-core body's first M and a ragged
-    shape; bitwise against kernel 2 on the absorbed expansion of a packed
-    weight at M 8, 33, 300 and 3840; a NaN scale confined to its row and
-    column in either body; then timed at the LM head's shape and the
+    shape, ragged decode shapes (M 1, 17, 32), the prefill shape, the
+    tensor-core body's first M and a ragged prefill shape; bitwise against
+    kernel 2 on the absorbed expansion of a packed weight at M 1, 8, 32
+    (the decode body) and 33, 300, 3840; a NaN scale confined to its row
+    and column in either body; then timed at the LM head's shape and the
     prefill shape."""
     import torch
     from repro_torch.core.engine import packed_to_absorbed
@@ -618,6 +625,9 @@ def check_bfp_matmul(dev, records):
     vocab, d = EMBED_SHAPE
     worst = 0.0
     for m, k, n, label in ((8, d, vocab, "LM head decode"),
+                           (1, 320, 1001, "one row, ragged N, K/64 = 5"),
+                           (17, 320, 1001, "24 row slots, ragged N"),
+                           (32, 1024, 1000, "the decode body's last M"),
                            (3840, 1024, 2816, "prefill"),
                            (33, 1024, 1024, "the tensor-core body's first M"),
                            (37, 320, 1000, "ragged: M, N tails, K/64 = 5")):
@@ -632,7 +642,7 @@ def check_bfp_matmul(dev, records):
               f"the plain version (max |d| {float(err.max())})")
         print(f"  bfp_matmul_quantized {label} M={m} K={k} N={n}: bitwise "
               f"equal to the plain version")
-    for m in (8, 33, 300, 3840):
+    for m in (1, 8, 32, 33, 300, 3840):
         w = (torch.randn(1024, 2816, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
         pw = PackedW.from_dense(w).to_kernel_layout()
         x = torch.randn(m, 1024, generator=gen, device=dev).to(torch.bfloat16)
@@ -684,6 +694,155 @@ def check_bfp_matmul(dev, records):
         "library": "torch.matmul bf16 dense (M,K)x(K,N), not the same function",
         "shape": f"M=8 K={d} N={vocab} (the pallas LM head)",
         "prefill": {"shape": "M=3840 K=1024 N=2816", **rows[3840]}}
+
+
+def _sass_instructions(lib: str, *needles: str) -> int:
+    """SASS instructions (NOPs aside) of the one function of a built library
+    whose name holds every needle (``cuobjdump -sass``), up to its last
+    EXIT: the slow-path subroutines placed after the body (a correctly
+    rounded reciprocal's) are left out."""
+    from repro_torch.kernels import build
+
+    sass = subprocess.run(
+        [str(Path(build.nvcc()).parent / "cuobjdump"), "-sass",
+         str(build._target(lib))], capture_output=True, text=True,
+        check=True).stdout
+    bodies, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            bodies[name] = []
+        elif name and line.strip().startswith("/*") and ";" in line \
+                and " NOP" not in line:
+            bodies[name].append(line)
+    found = [n for n in bodies if all(nd in n for nd in needles)]
+    check(len(found) == 1, f"cuobjdump -sass of {lib}: functions {found} "
+          f"match {needles}")
+    body = bodies[found[0]]
+    exits = [i for i, line in enumerate(body) if " EXIT" in line]
+    check(bool(exits), f"cuobjdump -sass of {lib}: no EXIT in {found[0]}")
+    return exits[-1] + 1
+
+
+def _issue_floor_ms(n_lanes: int, per_lane: int) -> float:
+    """A note printed beside the roofline (not a field of the kernel
+    records): ``per_lane`` instructions on each of ``n_lanes`` lanes, issued
+    by 4 schedulers per SM (one warp instruction each per clock) on 132 SMs
+    at the 1.98 GHz boost clock of the f32 peak."""
+    return n_lanes / 32 * per_lane / (132 * 4 * 1.98e9) * 1e3
+
+
+def _head_decode_bound_ms(m, k, n, w_bytes=2):
+    """The decode form: the int8 activations and their scales and the
+    weight read once, the (M, N) f32 output written once; 2 M N K int8
+    operations."""
+    nbytes = m * k + m * (k // 64) * 4 + k * n * w_bytes + m * n * 4
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / INT8_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations"), nbytes
+
+
+def check_head_matmul(dev, records):
+    """The decode form of kernel 5 (the weight's Algorithm 1 in its loader):
+    bitwise equal to its plain version and to kernel 1 on w.T then kernel 5
+    at the LM head's shape and at ragged shapes (M 1, 8, 17, 32; K/64 = 5;
+    N % 2 != 0), bf16 and f32 weights handed over as transposed views; a
+    NaN weight confined to its column; then timed at the LM head's shape
+    (M=8, K=1024, N=151 936, bf16) beside the pair it replaces (kernel 1 on
+    the embedding, then kernel 5), with the bytes bound and Algorithm 1's
+    issue floor (kernel 1's SASS instructions per lane, cuobjdump)."""
+    import torch
+    from repro_torch.kernels.bfp_matmul import (
+        bfp_decode_matmul, bfp_decode_matmul_plain, bfp_matmul_quantized,
+        decode_matmul_plan)
+    from repro_torch.kernels.hif4_quant import hif4_quantize
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    vocab, d = EMBED_SHAPE
+    worst, cases = 0.0, 0
+    shapes = [(8, d, vocab, torch.bfloat16, "LM head"),
+              (8, d, vocab, torch.float32, "LM head, f32 weight")]
+    shapes += [(m, k, n, dt, "ragged") for m in (1, 8, 17, 32)
+               for k, n in ((320, 1001), (1024, 1000))
+               for dt in (torch.bfloat16, torch.float32)]
+    for m, k, n, dt, label in shapes:
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        embed = (torch.randn(n, k, generator=gen, device=dev) * 0.02).to(dt)
+        ai, asc = hif4_quantize(x)
+        y = bfp_decode_matmul(ai, asc, embed.T)
+        ref = bfp_decode_matmul_plain(ai, asc, embed.T)
+        wi, wsc = hif4_quantize(embed)
+        y5 = bfp_matmul_quantized(ai, asc, wi.T, wsc.T)
+        torch.cuda.synchronize()
+        worst = max(worst, float((y - ref).abs().max()))
+        check(torch.equal(y.view(torch.int32), ref.view(torch.int32))
+              and torch.equal(y.view(torch.int32), y5.view(torch.int32)),
+              f"bfp_decode_matmul M={m} K={k} N={n} {dt}: not bitwise equal to "
+              f"its plain version or to kernel 1 then kernel 5 at "
+              f"{int((y != ref).sum())} / {int((y != y5).sum())} outputs")
+        cases += 1
+        if label.startswith("LM head"):
+            print(f"  bfp_decode_matmul {label} M={m} K={k} N={n}: bitwise equal "
+                  f"to the plain version and to kernel 1 then kernel 5")
+    embed = (torch.randn(1000, 256, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    embed[997, 70] = float("nan")
+    ai, asc = hif4_quantize(torch.randn(8, 256, generator=gen, device=dev))
+    y = bfp_decode_matmul(ai, asc, embed.T)
+    want = torch.zeros_like(y, dtype=torch.bool)
+    want[:, 997] = True
+    torch.cuda.synchronize()
+    check(torch.equal(y.isnan(), want), "bfp_decode_matmul: a NaN weight "
+          "reached outputs outside its column")
+    print(f"  bfp_decode_matmul: {cases} cases bitwise (M 1, 8, 17, 32; K 320, "
+          f"1024; bf16 and f32 weights); NaN weight -> its column only")
+
+    # timed at the LM head, the pair it replaces in the same call
+    m, k, n = 8, d, vocab
+    ops = []
+    for _ in range(2):                   # 2 x 311 MB of embedding > the L2
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        embed = (torch.randn(n, k, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        ops.append((*hif4_quantize(x), embed.T, x))
+
+    def pair(ai, asc, w):
+        wi, wsc = hif4_quantize(w.T)
+        return bfp_matmul_quantized(ai, asc, wi.T, wsc.T)
+
+    args = [o[:3] for o in ops]
+    t = timed(bfp_decode_matmul, args, iters=30)
+    old = timed(pair, args, iters=30)
+    plain_ms = cuda_ms(bfp_decode_matmul_plain, args, iters=3, warmup=1)
+    library_ms = cuda_ms(torch.matmul, [(o[3], o[2]) for o in ops], iters=30)
+    bound_ms, bound_by, nbytes = _head_decode_bound_ms(m, k, n)
+    per_lane = _sass_instructions("hif4_quant", "hif4_quantize_kernel",
+                                  "nv_bfloat16", "Lb1E")
+    floor_ms = _issue_floor_ms(n * k // 8, per_lane)
+    pair_bound = (_quantize_bound_ms(n, k) + _group_matmul_bound_ms(m, k, n)[0])
+    plan = decode_matmul_plan(m, k, n, "bf16")
+    print(f"  bfp_decode_matmul M={m} K={k} N={n} bf16 (the LM head): "
+          f"{_times(t)} plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} "
+          f"({bound_by}: {nbytes} B); Algorithm 1 issue floor "
+          f"{floor_ms:.6f} ms ({per_lane} SASS instructions per lane in kernel "
+          f"1's body, load and store included, {n * k // 8} lanes); "
+          f"library_ms={library_ms:.5f} (torch.matmul "
+          f"bf16 dense, not the same function); plan {plan}")
+    print(f"  the pair it replaces (kernel 1 on the embedding, then kernel 5), "
+          f"same call: {_times(old)} bound_ms={pair_bound:.6f} (bytes, the two "
+          f"kernels' bounds); decode form / pair device_ms "
+          f"{t['device_ms'] / old['device_ms']:.3f}")
+    records["bfp_decode_matmul"] = {
+        "name": "bfp_decode_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/bfp_decode_matmul.cu",
+        "body": "src/repro_torch/csrc/group_matmul_decode.cuh",
+        "replaces": "src/repro/kernels/bfp_matmul.py:101",
+        "loader_replaces": "src/repro/kernels/hif4_quant.py:75",
+        "max_abs_err": worst, **t, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "library": "torch.matmul bf16 dense (M,K)x(K,N), not the same function",
+        "shape": f"M={m} K={k} N={n}, bf16 weight (the pallas LM head)",
+        "issue_floor_ms": floor_ms, "sass_per_lane": per_lane,
+        "pair": dict(old, bound_ms=pair_bound)}
+    del ops, args
 
 
 def _packed_cache(b, s, hkv, d, gen, dev):
@@ -1121,7 +1280,8 @@ def phase_serve(dev, seed, records):
             "fused_packed_matmul": cfg.n_layers * sites * (1 + steps),
             "fused_decode_matmul": cfg.n_layers * sites * steps,
             "fused_decode_attention": cfg.n_layers * steps,
-            "fused_paged_decode_attention": 0, "bfp_matmul_quantized": 0}
+            "fused_paged_decode_attention": 0, "bfp_matmul_quantized": 0,
+            "bfp_decode_matmul": 0}
     print(f"  launches on the main path: {launches} (expected {want})")
     check(launches == want, f"launch counts {launches} != expected {want}")
     for name, n in launches.items():
@@ -1161,8 +1321,9 @@ def phase_serve(dev, seed, records):
 
 def phase_pallas(dev, seed, records):
     """The dense pallas route at full width and depth: the packed body
-    (kernels 1-3) and the LM head quantizing the tied embedding and the
-    activations per call (kernel 1 twice) into kernel 5; then the same
+    (kernels 1-3) and the LM head quantizing the activations (kernel 1) and
+    the tied embedding (in the loader of kernel 5's decode form) per call;
+    then the same
     weights under nvfp4-baseline; the four formats' qdq on the card against
     the CPU; the quantized matmul of kernels.ops against the f32 product."""
     import torch
@@ -1210,23 +1371,39 @@ def phase_pallas(dev, seed, records):
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token ids out of range")
     calls = 1 + steps                         # LM-head calls: prefill + decode
     sites = 7
-    want = {"hif4_quantize": cfg.n_layers * sites + 2 * calls,
+    # every head call has batch rows (each request's last position): kernel
+    # 1 on them, then the decode form of kernel 5, which quantizes the
+    # embedding in its loader; kernel 5 counts both of its forms
+    want = {"hif4_quantize": cfg.n_layers * sites + calls,
             "fused_packed_matmul": cfg.n_layers * sites * calls,
             "fused_decode_matmul": cfg.n_layers * sites * steps,
             "fused_decode_attention": cfg.n_layers * steps,
             "fused_paged_decode_attention": 0,
-            "bfp_matmul_quantized": calls}
+            "bfp_matmul_quantized": calls, "bfp_decode_matmul": calls}
     print(f"  launches in the pallas run: {launches} (expected {want})")
     check(launches == want, f"launch counts {launches} != expected {want}")
-    records.setdefault("bfp_matmul_quantized", {})["launches"] = launches[
-        "bfp_matmul_quantized"]
-    if "hif4_quantize" in records:   # one per head call (0 on the serve path)
-        records["hif4_quantize"]["embedding"]["launches_pallas"] = calls
+    per_shape = {key[1]: v for key, v in build.SHAPE_LAUNCHES.items()
+                 if key[0] == "bfp_decode_matmul"}
+    print(f"  bfp_decode_matmul launches per (M, K, N): {per_shape}")
+    check(per_shape == {(batch, cfg.d_model, cfg.vocab): calls},
+          f"bfp_decode_matmul launches per shape {per_shape}")
+    records.setdefault("bfp_decode_matmul", {})["launches"] = launches[
+        "bfp_decode_matmul"]
+    # kernel 5's row: both forms, as its counter counts them; its int8 form
+    # (pre-quantized operands) runs on no main path now
+    records.setdefault("bfp_matmul_quantized", {}).update(
+        launches=launches["bfp_matmul_quantized"],
+        launches_int8_form=(launches["bfp_matmul_quantized"]
+                            - launches["bfp_decode_matmul"]),
+        launches_decode_form=launches["bfp_decode_matmul"])
+    if "hif4_quantize" in records:   # 0 on the embedding: the decode form
+        records["hif4_quantize"]["embedding"]["launches_pallas"] = 0
     print(f"  request 0: {toks[0].tolist()}")
     _check_tokens_vary("pallas", toks)
 
     # the head at the last decode step, on the hidden state it was given:
-    # kernels 1 and 5 against their plain versions on the card, bitwise, and
+    # kernel 1 and the decode form against their plain versions on the card,
+    # bitwise, and
     # the served token is the logits' argmax
     sctx = serving_ctx(ctx)
     x = seen[-1]
@@ -1322,7 +1499,8 @@ def plain_versions():
     (for a run on the card that launches no kernel of the port)."""
     from repro_torch.core import engine
     from repro_torch.kernels import ops
-    from repro_torch.kernels.bfp_matmul import bfp_matmul_quantized_plain
+    from repro_torch.kernels.bfp_matmul import (
+        bfp_decode_matmul_plain, bfp_matmul_quantized_plain)
     from repro_torch.kernels.fused_attention import fused_decode_attention_plain
     from repro_torch.kernels.fused_matmul import (
         fused_decode_matmul_plain, fused_packed_matmul_plain)
@@ -1330,7 +1508,7 @@ def plain_versions():
 
     saved = (engine.hif4_quantize, engine.fused_packed_matmul,
              engine.fused_decode_matmul, engine.fused_decode_attention,
-             ops.hif4_quantize, ops.bfp_matmul_quantized)
+             ops.hif4_quantize, ops.bfp_matmul_quantized, ops.bfp_decode_matmul)
     engine.hif4_quantize = ops.hif4_quantize = absorbed_activation
     engine.fused_packed_matmul = fused_packed_matmul_plain
     engine.fused_decode_matmul = fused_decode_matmul_plain
@@ -1339,12 +1517,14 @@ def plain_versions():
         fused_decode_attention_plain(q, k, v, length, n_kv_heads, d_head,
                                      block_kv=block_kv))
     ops.bfp_matmul_quantized = bfp_matmul_quantized_plain
+    ops.bfp_decode_matmul = bfp_decode_matmul_plain
     try:
         yield
     finally:
         (engine.hif4_quantize, engine.fused_packed_matmul,
          engine.fused_decode_matmul, engine.fused_decode_attention,
-         ops.hif4_quantize, ops.bfp_matmul_quantized) = saved
+         ops.hif4_quantize, ops.bfp_matmul_quantized,
+         ops.bfp_decode_matmul) = saved
 
 
 # card vs CPU: the largest share of prefill logits outside rtol=0.05,
@@ -1360,8 +1540,9 @@ REORDER_CHUNK = 16
 def phase_e2e(dev, seed):
     """A 2-layer cut at full width from one set of weights, served three
     ways under each of paper-iv (impl packed) and the head policy (impl
-    pallas, LM head through kernel 5): on the card through the kernels, on
-    the card through the plain versions, and on the CPU (plain versions)."""
+    pallas, LM head through kernel 5's decode form): on the card through
+    the kernels, on the card through the plain versions, and on the CPU
+    (plain versions)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
@@ -1397,8 +1578,8 @@ def phase_e2e(dev, seed):
         ran = {k for k, n in build.LAUNCHES.items() if n}
         want = {"hif4_quantize", "fused_packed_matmul", "fused_decode_matmul",
                 "fused_decode_attention"}
-        if policy == "head":
-            want.add("bfp_matmul_quantized")
+        if policy == "head":               # the head: kernel 5's decode form
+            want |= {"bfp_matmul_quantized", "bfp_decode_matmul"}
         check(ran == want, f"the card run launched {build.LAUNCHES}")
         with plain_versions():
             run("card-plain", dev)
@@ -1703,7 +1884,8 @@ def main(argv=None) -> int:
                                    check_decode_matmul(dev, records),
                                    check_attention(dev, records),
                                    check_paged_attention(dev, records),
-                                   check_bfp_matmul(dev, records))),
+                                   check_bfp_matmul(dev, records),
+                                   check_head_matmul(dev, records))),
               ("serve", lambda: phase_serve(dev, args.seed, records)),
               ("pallas", lambda: phase_pallas(dev, args.seed, records)),
               ("e2e", lambda: phase_e2e(dev, args.seed)),
@@ -1730,7 +1912,7 @@ def main(argv=None) -> int:
         return 1
     names = ["hif4_quantize", "fused_packed_matmul", "fused_decode_matmul",
              "fused_decode_attention", "fused_paged_decode_attention",
-             "bfp_matmul_quantized"]
+             "bfp_matmul_quantized", "bfp_decode_matmul"]
     print(f"kernels: {json.dumps(names)}")
     if not only:
         print(json.dumps({"kernels": [dict(records[n], kernel_ms=records[n]["ms"])

@@ -14,9 +14,13 @@ packed-KV decode attention (port of ``repro/core/engine.py``).
            versions run, with the reference's off-TPU size cap (above it:
            dequantize-then-dot).
   pallas — on a PackedW the same fused path as ``packed``; on a dense weight
-           both operands are quantized by ``hif4_quantize`` on every call and
-           contracted by ``bfp_matmul_quantized`` (kernels 1 and 5 on CUDA
-           tensors, their plain versions on CPU tensors).
+           both operands are quantized by Algorithm 1 on every call and
+           contracted by the fixed-point kernel (``kernels.ops.matmul``): on
+           CUDA tensors with at most ``DECODE_M_MAX`` rows (the LM head at
+           decode) kernel 1 on the activations, then the decode form of
+           kernel 5 (``bfp_decode_matmul``), which quantizes the weight in
+           its loader; with more rows kernel 1 on both operands, then kernel
+           5. On CPU tensors their plain versions run.
 
 Dispatch is total, following the reference's fallback table:
 
@@ -61,6 +65,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.bfp_matmul import (
     DECODE_M_MAX,
     cuda_tiles,
+    decode_matmul_plan,
     select_block_sizes,
 )
 from repro_torch.kernels.fused_matmul import (
@@ -321,12 +326,41 @@ def _pallas_weight_ok(w, contract_w: int) -> bool:
 
 def _pallas_dense_matmul(x, w):
     """Both operands quantized by Algorithm 1 on every call (A-W dynamic
-    quantization), contracted by the fixed-point kernel. The f32 result is
-    cast to ``x.dtype``, as the reference casts it: a bf16 ``x`` (the LM
-    head's) rounds its logits to bf16 here."""
+    quantization), contracted by the fixed-point kernel (the route by rows:
+    :func:`dense_dispatch_info`). The f32 result is cast to ``x.dtype``, as
+    the reference casts it: a bf16 ``x`` (the LM head's) rounds its logits
+    to bf16 here."""
     lead, k = x.shape[:-1], x.shape[-1]
     y = ops.matmul(x.reshape(-1, k), w)
     return y.reshape(lead + (w.shape[1],)).to(x.dtype)
+
+
+def dense_dispatch_info(quant: QuantConfig, k: int, n: int, *, m: int,
+                        device) -> dict:
+    """What the engine runs for ``m`` rows against a dense (K, N) weight
+    under ``quant`` (the LM head under a policy that quantizes it) on
+    ``device``: the launcher prints it next to the packed matmul line.
+    ``route`` names the launches of the call, ``plan`` the CUDA plan of its
+    contraction (``bfp_matmul.decode_matmul_plan``'s rows, stages, CTAs per
+    SM and grid for the decode form; the tensor-core body's (BM, BN,
+    stages) above ``DECODE_M_MAX`` rows)."""
+    probe = torch.empty((m, k), dtype=torch.bfloat16, device="meta")
+    if not (quant.enabled and quant.impl == "pallas"
+            and _pallas_activation_ok(quant, probe, -1)):
+        return {"pallas": False, "execution": "qdq", "route": None,
+                "plan": None}
+    if torch.device(device).type != "cuda":
+        return {"pallas": True, "route": None, "plan": None,
+                "execution": "plain PyTorch fixed-point contraction (CPU)"}
+    if m <= DECODE_M_MAX:
+        plan = decode_matmul_plan(m, k, n, "bf16")
+        return {"pallas": True, "execution": "CUDA fixed-point kernels",
+                "route": "hif4_quantize on x, then bfp_decode_matmul (kernel "
+                         "5's decode form, the weight quantized in its loader)",
+                "plan": (plan.rows, plan.stages, plan.ctas_per_sm, plan.grid)}
+    return {"pallas": True, "execution": "CUDA fixed-point kernels",
+            "route": "hif4_quantize on x and on w.T, then bfp_matmul_quantized "
+                     "(int8 tensor-core body)", "plan": cuda_tiles(m)}
 
 
 def packed_to_absorbed(w: PackedW) -> tuple[torch.Tensor, torch.Tensor]:

@@ -14,13 +14,15 @@
 //
 // What bounds it on the H100: at decode (M <= 32, the LM head) the bytes of
 // the int8 weight (1 B/value, plus 1/16 B of scales); at prefill M the int8
-// operations. The CTA bodies are group_matmul.cuh's (M <= 32) and
-// group_matmul_sm90.cuh's (M > 32, int8 tensor cores), shared with kernel
-// 2, so kernel 5 on packed_to_absorbed(pw) is bitwise kernel 2 on pw; this
-// file adds the loader that reads B's int8 words and f32 scales (the
-// prefill body copies them into its B tile as they are). At decode the N
-// axis alone gives N/32 CTAs (4 748 for the LM head).
-#include "group_matmul.cuh"
+// operations. The CTA bodies are group_matmul_decode.cuh's (M <= 32: a
+// persistent grid whose warps stream whole columns once through per-warp
+// cp.async rings, the activation words in registers) and
+// group_matmul_sm90.cuh's (M > 32, int8 tensor cores, shared with kernel 2,
+// so kernel 5 on packed_to_absorbed(pw) is bitwise kernel 2 on pw); this
+// file adds the loader that reads B's int8 words and f32 scales for both.
+// The decode body's other loader (bfp_decode_matmul.cu) quantizes a
+// bf16/f32 weight on the fly: kernel 5's decode form.
+#include "group_matmul_decode.cuh"
 
 namespace {
 
@@ -51,36 +53,71 @@ struct Int8B {
                     n < N ? 4 : 0);
   }
 
-  template <int BN, int GPI, int kThreads, int kStride>
-  __device__ __forceinline__ void stage(int32_t (*s_b)[kStride],
-                                        float (*s_bs)[BN], int n0, int g0,
-                                        int gc, int N, int K, int tid) const {
-    constexpr int kWords = GPI * 16;
-    const int groups = K / 64;
-    for (int i = tid; i < GPI * BN; i += kThreads) {
-      const int gi = i / BN, c = i % BN, n = n0 + c;
-      s_bs[gi][c] = (gi < gc && n < N)
-                        ? scales[static_cast<size_t>(n) * groups + g0 + gi]
-                        : 0.0f;
+  // the decode body: a stage is a chunk of column n (1024 ints: lane l's
+  // 32 bytes as two 16-byte halves, swapped on lanes 4-7 of every 8) and
+  // the scales of its 16 groups, zero past K; lane l copies pieces l and
+  // l + 32 of the chunk (a warp instruction copies 512 contiguous bytes)
+  static constexpr int kStageBytes = dec::kChunk + 64;
+  static constexpr int kStages = 5;
+  static constexpr int kCtasPerSm = 2;
+  static constexpr int kStagingBytes = 0;
+
+  static __device__ __forceinline__ int half_at(int l, int h) {
+    return 32 * l + 16 * (h ^ ((l >> 2) & 1));
+  }
+
+  __device__ __forceinline__ void issue(unsigned char* st, int n, int chunk,
+                                        int lane, int N, int K) const {
+    const size_t col = static_cast<size_t>(min(n, N - 1)) * K;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = lane + 32 * j, k = chunk * dec::kChunk + 16 * i;
+      const bool ok = n < N && k < K;
+      sm90::cp_async16(st + half_at(i >> 1, i & 1), b + col + (ok ? k : 0),
+                       ok ? 16 : 0);
     }
-    for (int i = tid; i < BN * kWords; i += kThreads) {
-      const int c = i / kWords, wd = i % kWords, n = n0 + c;
-      s_b[c][wd] = (n < N && wd < gc * 16)
-                       ? reinterpret_cast<const int32_t*>(
-                             b + static_cast<size_t>(n) * K + g0 * 64)[wd]
-                       : 0;
+    if (lane < 16) {
+      const int g = chunk * (dec::kChunk / 64) + lane;
+      const bool ok = n < N && g < K / 64;
+      sm90::cp_async4(st + dec::kChunk + 4 * lane,
+                      scales + static_cast<size_t>(min(n, N - 1)) * (K / 64) +
+                          (ok ? g : 0),
+                      ok ? 4 : 0);
     }
+  }
+
+  __device__ __forceinline__ void words(const unsigned char* st,
+                                        unsigned char*, int lane, int (&w)[8],
+                                        float& scale) const {
+    const uint4 lo = *reinterpret_cast<const uint4*>(st + half_at(lane, 0));
+    const uint4 hi = *reinterpret_cast<const uint4*>(st + half_at(lane, 1));
+    w[0] = static_cast<int>(lo.x);
+    w[1] = static_cast<int>(lo.y);
+    w[2] = static_cast<int>(lo.z);
+    w[3] = static_cast<int>(lo.w);
+    w[4] = static_cast<int>(hi.x);
+    w[5] = static_cast<int>(hi.y);
+    w[6] = static_cast<int>(hi.z);
+    w[7] = static_cast<int>(hi.w);
+    scale = reinterpret_cast<const float*>(st + dec::kChunk)[lane / 2];
   }
 };
 
 }  // namespace
 
+// regime 0 = decode (M <= 32: group_matmul_decode.cuh, whose plan is
+// dec::kPlanFields ints), regime 1 = prefill (M > 32: the tensor-core body,
+// sm90::kPlanFields ints); a regime that does not fit M is refused.
 extern "C" int bfp_matmul_quantized(const void* a, const void* a_scales,
                                     const void* b, const void* b_scales,
                                     void* out, int M, int N, int K, int regime,
                                     const int* plan, void* stream) {
   const Int8B loader{static_cast<const int8_t*>(b),
                      static_cast<const float*>(b_scales)};
-  return launch_group_matmul(loader, a, a_scales, out, M, N, K, regime,
-                             plan, 0, stream);
+  if (M <= 0 || N <= 0 || K <= 0 || K % 64 || regime != (M > 32 ? 1 : 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (regime == 0)
+    return dec::launch(loader, a, a_scales, out, M, N, K, plan, stream);
+  return sm90::launch<Int8B, float>(loader, a, a_scales, out, M, N, K, plan,
+                                    stream);
 }

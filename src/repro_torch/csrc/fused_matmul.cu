@@ -15,7 +15,7 @@
 // that hand it quantized activations.
 //
 // The CTA bodies are group_matmul.cuh's (M <= 32) and group_matmul_sm90.cuh's
-// (M > 32, int8 tensor cores), shared with kernel 5; this file adds the
+// (M > 32, int8 tensor cores, shared with kernel 5); this file adds the
 // B-tile loader that expands the weight's code bytes and meta words to
 // absorbed int8 in shared memory (low nibble = even K row, scale 2^eb from
 // the exponent field, 0xFF -> NaN; hif4.absorbed_int_km). Every weight byte

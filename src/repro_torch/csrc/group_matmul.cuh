@@ -1,5 +1,5 @@
-// The CTA bodies shared by kernel 2 (fused_packed_matmul, fused_matmul.cu)
-// and kernel 5 (bfp_matmul_quantized, bfp_matmul.cu): a group-scaled int8
+// The decode CTA body of kernel 2 (fused_packed_matmul, fused_matmul.cu)
+// when it is called directly with at most 32 rows: a group-scaled int8
 // matmul, templated over the loader of the B tile and the output type.
 //
 //   out (M, N) = sum over 64-groups g, in group order, of
@@ -7,15 +7,17 @@
 //
 // a (M, K) int8 row-major with a_scales (M, K/64) f32. The loader stages,
 // for GPI groups from g0 on, the B columns n0..n0+BN-1 as absorbed int8
-// words (K contiguous per column) into s_b and their scales into s_bs; kernel
-// 2's loader expands 4.5-bit codes + meta words, kernel 5's reads int8 words
-// and f32 scales. Kernel 5 on the absorbed expansion of a packed weight is
-// bitwise kernel 2 on it, in either of kernel 2's forms, because all three
-// compute each output in one order: exact int32 group dots, then
-// (dot * a_scale) * b_scale rounded to f32, summed in group order from 0.0f
-// with no contracted multiply-add. Here one CTA body per regime gives it
-// to both kernels; the decode form (fused_decode_matmul.cu: its own body,
-// kernel 1 as its prologue) keeps the same order per output.
+// words (K contiguous per column) into s_b and their scales into s_bs;
+// kernel 2's loader expands 4.5-bit codes + meta words. Kernel 5 on the
+// absorbed expansion of a packed weight is bitwise kernel 2 on it, in any
+// of the bodies, because all compute each output in one order: exact int32
+// group dots, then (dot * a_scale) * b_scale rounded to f32, summed in
+// group order from 0.0f with no contracted multiply-add. Kernel 5's own
+// decode body is group_matmul_decode.cuh (its weight columns are K
+// contiguous; kernel 2's code rows are N contiguous, so its loader would
+// need a design of its own there), and the engine's decode linears take
+// kernel 2's decode form (fused_decode_matmul.cu: its own body, kernel 1 as
+// its prologue), which keeps the same order per output.
 //
 // One CTA per (BM x BN) output tile walks the whole K axis in a loop (the
 // TPU's sequential K grid axis with its revisited output block becomes

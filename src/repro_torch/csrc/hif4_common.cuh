@@ -26,6 +26,15 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || isnan(a)) ? a : b;
 }
 
+// nan_max of two magnitudes (never -0): max.NaN gives the same value, and a
+// canonical NaN where nan_max passes one through (every NaN meets a bf16
+// rounding, which makes it canonical, before it reaches an output)
+__device__ __forceinline__ float nan_max_abs(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (a < b || isnan(a)) ? a : b;
 }
@@ -55,22 +64,28 @@ __device__ __forceinline__ int absorbed_int(uint32_t nibble, uint32_t meta,
 }
 
 // ---------------------------------------------------------------------------
-// Algorithm 1 on one 64-group held by 8 lanes (kernel 1's body, also the
-// prologue of the decode form of kernel 2, so the two cannot drift apart)
+// Algorithm 1 on 64-groups held by 8 lanes each (kernel 1's body, also the
+// prologue of the decode form of kernel 2 and the weight loader of kernel
+// 5's decode form)
 // ---------------------------------------------------------------------------
 
 constexpr float kHif4Recip7Bf16 = 0.142578125f;  // (1/7) rounded to bf16
 constexpr float kHif4E6m2Max = 49152.0f;         // 2^15 * 1.5
 
-// 8 neighbouring elements from 16-byte aligned memory
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 w = *reinterpret_cast<const uint4*>(p);
+// 8 neighbouring bf16 elements of one 16-byte word (element 0 in the low
+// half of w.x) as floats
+__device__ __forceinline__ void unpack8(const uint4& w, float (&v)[8]) {
   const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     v[2 * i] = __uint_as_float(u[i] << 16);
     v[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
   }
+}
+
+// 8 neighbouring elements from 16-byte aligned memory
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), v);
 }
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
@@ -88,58 +103,124 @@ __device__ __forceinline__ float round_e6m2(float x) {
   int eb = static_cast<int>((__float_as_uint(ax) >> 23) & 0xFFu) - 127;
   eb = min(max(eb, -48), 15);
   const float quantum = pow2i(eb - 2);
-  const float q = rintf(__fdiv_rn(ax, quantum)) * quantum;
+  // ax / quantum is exact: a multiply by the power of two 2^(2 - eb)
+  const float q = rintf(ax * pow2i(2 - eb)) * quantum;
   return nan_min(nan_max(q, kE6m2Min), kHif4E6m2Max);
 }
 
+// One element's absorbed int: S1P2 quarters of rbf(v * rec) shifted right by
+// the block's micro-exponent, then left (shift_scale4 = 4 * 2^-shift: the
+// reference's * 2^-shift * 4 in one exact multiply; only values below
+// 2^-124, which round to 0 either way, could differ between the two).
 __device__ __forceinline__ uint32_t absorb(float v, float rec,
-                                           float shift_scale, int shift) {
-  const float scaled = rbf(v * rec) * shift_scale;
-  const float q = fminf(fmaxf(rintf(scaled * 4.0f), -7.0f), 7.0f);
+                                           float shift_scale4, int shift) {
+  const float q =
+      fminf(fmaxf(rintf(rbf(v * rec) * shift_scale4), -7.0f), 7.0f);
   return static_cast<uint32_t>(static_cast<int>(q) * (1 << shift)) & 0xFFu;
 }
 
-// A 64-group is held by 8 consecutive lanes (lane % 8 = its E1_8 block),
-// each with its block's 8 elements in v; all 32 lanes of the warp call this
-// together (4 groups per warp). Returns the lane's 8 absorbed ints packed
-// little-endian (element 0 in the low byte); `scale` gets the group's
-// E6M2 / 4 on every lane. Algorithm 1's three-level tree max is a lane's own
-// two E1_16 blocks of 4 and its E1_8 block, then three shuffle levels across
-// the group's 8 lanes. Every bf16 step of the reference is an explicit
-// __float2bfloat16_rn, the reciprocal an IEEE division, rounding rintf (half
-// to even), and the micro-exponent scales the exact constants 1, 0.5, 0.25.
-__device__ __forceinline__ uint2 hif4_quantize_group(const float (&v)[8],
-                                                     float& scale) {
-  // Stage 1: tree max (lines 1-7)
-  const float v16a = nan_max(nan_max(fabsf(v[0]), fabsf(v[1])),
-                             nan_max(fabsf(v[2]), fabsf(v[3])));
-  const float v16b = nan_max(nan_max(fabsf(v[4]), fabsf(v[5])),
-                             nan_max(fabsf(v[6]), fabsf(v[7])));
-  const float v8 = nan_max(v16a, v16b);
-  float vmax = v8;
+// Algorithm 1 in three pieces, composed by hif4_quantize_group (kernel 1,
+// the prologue of kernel 2's decode form) and hif4_quantize_pass4 (the
+// loader of kernel 5's decode form), so none of them can drift apart. Every
+// bf16 step of the reference is an explicit __float2bfloat16_rn, the
+// reciprocal correctly rounded (__frcp_rn, as 1.0f / x), rounding rintf
+// (half to even), and the micro-exponent scales exact powers of two.
+
+// Stage 1 (lines 1-7): a lane's two E1_16 blocks of 4, its E1_8 block, and
+// the group max over its 8 lanes (three shuffle levels).
+struct Hif4Max {
+  float v16a, v16b, v8, vmax;
+};
+
+__device__ __forceinline__ Hif4Max hif4_group_max(const float (&v)[8]) {
+  Hif4Max m;
+  m.v16a = nan_max_abs(nan_max_abs(fabsf(v[0]), fabsf(v[1])),
+                       nan_max_abs(fabsf(v[2]), fabsf(v[3])));
+  m.v16b = nan_max_abs(nan_max_abs(fabsf(v[4]), fabsf(v[5])),
+                       nan_max_abs(fabsf(v[6]), fabsf(v[7])));
+  m.v8 = nan_max_abs(m.v16a, m.v16b);
+  m.vmax = m.v8;
 #pragma unroll
   for (int o = 1; o < 8; o <<= 1)
-    vmax = nan_max(vmax, __shfl_xor_sync(HIF4_FULL_MASK, vmax, o));
+    m.vmax = nan_max_abs(m.vmax, __shfl_xor_sync(HIF4_FULL_MASK, m.vmax, o));
+  return m;
+}
 
-  // Stage 2: hierarchical scaling metadata (lines 8-14)
-  const float sf = rbf(rbf(vmax) * kHif4Recip7Bf16);
-  const float e6m2 = round_e6m2(sf);
-  const float rec = rbf(__fdiv_rn(1.0f, e6m2));
-  const int e1_8 = rbf(v8 * rec) > 4.0f ? 1 : 0;
+// Stage 2, the group's part (lines 8-10): E6M2 and its bf16 reciprocal.
+__device__ __forceinline__ void hif4_group_scale(float vmax, float& e6m2,
+                                                 float& rec) {
+  e6m2 = round_e6m2(rbf(rbf(vmax) * kHif4Recip7Bf16));
+  rec = rbf(__frcp_rn(e6m2));
+}
+
+// Stage 2, the lane's part (lines 11-14), and stage 3 (lines 15-18): the
+// micro-exponents of the lane's blocks, then its 8 absorbed ints packed
+// little-endian (element 0 in the low byte).
+__device__ __forceinline__ uint2 hif4_absorb_block(const float (&v)[8],
+                                                   const Hif4Max& m,
+                                                   float rec) {
+  const int e1_8 = rbf(m.v8 * rec) > 4.0f ? 1 : 0;
   const float half = e1_8 ? 0.5f : 1.0f;
-  const int sa = e1_8 + (rbf(v16a * rec) * half >= 2.0f ? 1 : 0);
-  const int sb = e1_8 + (rbf(v16b * rec) * half >= 2.0f ? 1 : 0);
-
-  // Stage 3: scale, round to S1P2 quarters, absorb shifts (lines 15-18)
-  const float ka = sa == 0 ? 1.0f : (sa == 1 ? 0.5f : 0.25f);
-  const float kb = sb == 0 ? 1.0f : (sb == 1 ? 0.5f : 0.25f);
+  const int sa = e1_8 + (rbf(m.v16a * rec) * half >= 2.0f ? 1 : 0);
+  const int sb = e1_8 + (rbf(m.v16b * rec) * half >= 2.0f ? 1 : 0);
+  const float ka = sa == 0 ? 4.0f : (sa == 1 ? 2.0f : 1.0f);
+  const float kb = sb == 0 ? 4.0f : (sb == 1 ? 2.0f : 1.0f);
   uint2 out;
   out.x = absorb(v[0], rec, ka, sa) | absorb(v[1], rec, ka, sa) << 8 |
           absorb(v[2], rec, ka, sa) << 16 | absorb(v[3], rec, ka, sa) << 24;
   out.y = absorb(v[4], rec, kb, sb) | absorb(v[5], rec, kb, sb) << 8 |
           absorb(v[6], rec, kb, sb) << 16 | absorb(v[7], rec, kb, sb) << 24;
-  scale = e6m2 * 0.25f;
   return out;
+}
+
+// A 64-group is held by 8 consecutive lanes (lane % 8 = its E1_8 block),
+// each with its block's 8 elements in v; all 32 lanes of the warp call this
+// together (4 groups per warp). Returns the lane's 8 absorbed ints; `scale`
+// gets the group's E6M2 / 4 on every lane.
+__device__ __forceinline__ uint2 hif4_quantize_group(const float (&v)[8],
+                                                     float& scale) {
+  const Hif4Max m = hif4_group_max(v);
+  float e6m2, rec;
+  hif4_group_scale(m.vmax, e6m2, rec);
+  scale = e6m2 * 0.25f;
+  return hif4_absorb_block(v, m, rec);
+}
+
+// Four passes of hif4_quantize_group at once (pass p: lane 8 * slot + blk
+// holds block blk of group 4p + slot, its values from values(p, v)), with
+// each group's scale worked out once instead of on all 8 of its lanes: lane
+// L computes group (pass L / 8, slot L / 2 % 4) from the max it is handed,
+// and the group's lanes take its E6M2 and reciprocal back. The values are
+// asked for twice (for the max, then for the ints) to keep registers free.
+template <class Values>
+__device__ __forceinline__ void hif4_quantize_pass4(int lane, Values values,
+                                                    uint2 (&out)[4],
+                                                    float (&scale)[4]) {
+  Hif4Max m[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    float v[8];
+    values(p, v);
+    m[p] = hif4_group_max(v);
+  }
+  const int src = 8 * ((lane >> 1) & 3);
+  float vmax = 0.0f;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const float x = __shfl_sync(HIF4_FULL_MASK, m[p].vmax, src);
+    if ((lane >> 3) == p) vmax = x;
+  }
+  float e6m2, rec;
+  hif4_group_scale(vmax, e6m2, rec);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int own = 8 * p + 2 * (lane >> 3);
+    const float rp = __shfl_sync(HIF4_FULL_MASK, rec, own);
+    scale[p] = __shfl_sync(HIF4_FULL_MASK, e6m2, own) * 0.25f;
+    float v[8];
+    values(p, v);
+    out[p] = hif4_absorb_block(v, m[p], rp);
+  }
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -12,9 +12,10 @@
 // groups per warp), so a lane reads 16 bytes (bf16) and writes 8, and a warp
 // reads 512 contiguous bytes. The group's arithmetic is hif4_quantize_group
 // (hif4_common.cuh), which the decode form of kernel 2
-// (fused_decode_matmul.cu) runs as its prologue: the per-group metadata is
-// computed redundantly by the group's 8 lanes (no shared memory, no
-// barrier), and the output is bitwise the reference's. An input that is not
+// (fused_decode_matmul.cu) runs as its prologue and whose pieces the decode
+// form of kernel 5 (bfp_decode_matmul.cu) runs in its loader: here the
+// per-group metadata is computed redundantly by the group's 8 lanes (no
+// shared memory, no barrier), and the output is bitwise the reference's. An input that is not
 // 16-byte aligned takes element loads instead of vector loads.
 #include "hif4_common.cuh"
 

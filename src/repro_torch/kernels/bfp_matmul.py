@@ -9,21 +9,33 @@ bfp_matmul_quantized`` as the CUDA kernel ``csrc/bfp_matmul.cu``:
   b_ints (K, N) int8, b_scales (K/64, N) f32 -> (M, N) f32
       = sum over 64-groups g of float(int32 dot_g) * a_scale * b_scale
 
-The CUDA bodies are kernel 2's, with a loader that reads int8 words instead
-of expanding packed codes, so kernel 5 on the absorbed expansion of a packed
-weight is bitwise kernel 2 on it: ``csrc/group_matmul.cuh`` (``__dp4a``) for
-at most ``DECODE_M_MAX`` rows, ``csrc/group_matmul_sm90.cuh`` (int8
-``wgmma``, a warp-specialized ring of one-group stages) above, whose launch
-plan is :func:`prefill_plan`. The kernel
-reads B K-contiguous per column: a transposed view of a contiguous (N, K)
-tensor (what the engine passes: ``hif4_quantize(w.T)`` transposed back)
-launches on its storage without a copy; a row-major (K, N) operand is
-copied once into that layout.
+Two CUDA bodies: ``csrc/group_matmul_decode.cuh`` for at most
+``DECODE_M_MAX`` rows (a persistent grid whose warps stream whole columns
+once through per-warp ``cp.async`` rings, the activation words in
+registers; launch plan :func:`decode_matmul_plan`) and ``csrc/group_matmul_sm90.cuh`` above (int8
+``wgmma``, a warp-specialized ring of one-group stages, shared with kernel
+2, so kernel 5 on the absorbed expansion of a packed weight is bitwise
+kernel 2 on it; launch plan :func:`prefill_plan`). The kernel reads B
+K-contiguous per column: a transposed view of a contiguous (N, K) tensor
+(what the engine passes: ``hif4_quantize(w.T)`` transposed back) launches
+on its storage without a copy; a row-major (K, N) operand is copied once
+into that layout.
+
+The decode form of kernel 5, :func:`bfp_decode_matmul` (CUDA kernel
+``csrc/bfp_decode_matmul.cu``, the same decode body with a loader that runs
+kernel 1's Algorithm 1 on the weight):
+
+  a_ints (M, K) int8, a_scales (M, K/64) f32, w (K, N) bf16/f32 -> (M, N) f32
+
+bit for bit kernel 1 on ``w.T`` followed by kernel 5
+(:func:`bfp_decode_matmul_plain`, its plain version), in one launch that
+reads the weight once and writes no quantized copy of it. The tied LM head
+hands over ``embed.T``, whose storage is K-contiguous per column.
 
 :func:`bfp_matmul_quantized_plain` is the plain PyTorch version (the
 reference's ``_tile_group_dot``: exact int32 group dots, then the f32
-rescale), summed in group order with the kernel's rounding steps, so kernel
-and plain version agree bitwise; :func:`bfp_matmul_quantized` takes it only
+rescale), summed in group order with the kernels' rounding steps, so kernel
+and plain version agree bitwise; the wrappers take the plain versions only
 for CPU tensors. The plain version of kernel 2 is this one on the expanded
 weight. :func:`select_block_sizes` keeps the reference's per-regime tiles for
 the dispatch report; :func:`cuda_tiles` names the CUDA kernels' tiles.
@@ -36,10 +48,12 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.hif4_quant import absorbed_activation
 
 GROUP = 64
 # Decode M (a batch of single-token rows) vs prefill M regime boundary.
 DECODE_M_MAX = 32
+H100_SMS = 132
 
 
 def _fit(dim: int, want: int, quantum: int) -> int:
@@ -120,10 +134,69 @@ def prefill_plan(m: int, k: int, n: int, loader: str = "packed") -> PrefillPlan:
     return PrefillPlan(tm, tn, PREFILL_STAGES, PREFILL_LOOKAHEAD, stage, smem)
 
 
+# The decode body (csrc/group_matmul_decode.cuh, M <= DECODE_M_MAX): a
+# persistent grid of CTAs of DECODE_WARPS warps; a warp walks whole columns
+# in chunks of DECODE_CHUNK elements (lane l: ints 32 l .. 32 l + 31)
+# through its own ring of stages in shared memory, with a quantizing
+# loader's staging row and the term tile (16 groups + 4 floats per row
+# slot) beside it. Mirrored from the C++ constants; the launcher refuses a
+# plan that differs from its own.
+DECODE_WARPS = 8
+DECODE_CHUNK = 1024
+_DECODE_TERM_STRIDE = 20
+SMEM_PER_SM = 233_472               # 228 KB, 1 KB of it reserved per CTA
+# per loader: (bytes of a stage, ring stages, staging bytes, most CTAs per SM)
+_DECODE_LOADERS = {"int8": (DECODE_CHUNK + 64, 5, 0, 2),
+                   "bf16": (2 * DECODE_CHUNK, 3, DECODE_CHUNK + 64, 2),
+                   "f32": (4 * DECODE_CHUNK, 3, DECODE_CHUNK + 64, 2)}
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeMatmulPlan:
+    """The launch of the decode body: ``rows`` row slots (M rounded up to
+    8), a ring of ``stages`` chunks per warp, ``warps`` warps per CTA,
+    ``ctas_per_sm`` CTAs per SM, ``grid`` CTAs, ``smem_bytes`` of shared
+    memory per CTA (the warps' rings, staging rows and term tiles). The
+    launcher takes every field (:meth:`c_plan`) and refuses a plan that
+    differs from its constants."""
+
+    rows: int
+    stages: int
+    warps: int
+    ctas_per_sm: int
+    grid: int
+    smem_bytes: int
+
+    def c_plan(self):
+        """The fields as the launcher's ``const int* plan``, in its order."""
+        fields = dataclasses.astuple(self)
+        return (ctypes.c_int * len(fields))(*fields)
+
+
+def decode_matmul_plan(m: int, k: int, n: int, loader: str = "int8"
+                       ) -> DecodeMatmulPlan:
+    """csrc/group_matmul_decode.cuh's launch for ``loader`` ("int8": kernel
+    5, "bf16" / "f32": its decode form quantizing such a weight): a warp per
+    column at a time; the loader's CTAs per SM, or as many as the SM's
+    shared memory holds; the grid covers every column once or fills the
+    H100, whichever is fewer CTAs."""
+    if not 1 <= m <= DECODE_M_MAX or k < GROUP or k % GROUP or n < 1:
+        raise ValueError(f"the decode body takes 1 <= M <= {DECODE_M_MAX}, "
+                         f"K % 64 == 0 and N >= 1, got (M, K, N) = {(m, k, n)}")
+    stage, stages, staging, most = _DECODE_LOADERS[loader]
+    rows = -(-m // 8) * 8
+    smem = DECODE_WARPS * (stages * stage + staging
+                           + rows * _DECODE_TERM_STRIDE * 4)
+    ctas = min(most, SMEM_PER_SM // (smem + 1024))
+    grid = min(-(-n // DECODE_WARPS), H100_SMS * ctas)
+    return DecodeMatmulPlan(rows, stages, DECODE_WARPS, ctas, grid, smem)
+
+
 def cuda_tiles(M: int) -> tuple[int, int, int]:
-    """Kernels 2 and 5's tiles for this M: (BM, BN, 64-groups staged per
-    step) of the ``__dp4a`` body up to ``DECODE_M_MAX`` rows, (BM, BN, ring
-    stages of one 64-group) of the tensor-core body above."""
+    """Kernel 2's tiles for this M: (BM, BN, 64-groups staged per step) of
+    its ``__dp4a`` body (``csrc/group_matmul.cuh``) up to ``DECODE_M_MAX``
+    rows, (BM, BN, ring stages of one 64-group) of the tensor-core body
+    above (kernel 5's too; its decode tiles are :func:`decode_matmul_plan`'s)."""
     if M <= 16:
         return 16, 32, 4
     if M <= DECODE_M_MAX:
@@ -211,11 +284,11 @@ def bfp_matmul_quantized(a_ints, a_scales, b_ints, b_scales) -> torch.Tensor:
     b_nk = _k_contiguous(b_ints, "b_ints")
     bs_nk = _k_contiguous(b_scales, "b_scales")
     regime = 0 if M <= DECODE_M_MAX else 1
-    align = 16 if regime else 4         # the prefill body's 16-byte copies
-    if a_ints.data_ptr() % align or b_nk.data_ptr() % align:
-        raise ValueError(f"bfp_matmul_quantized: int8 operands must be "
-                         f"{align}-byte aligned")
-    plan = prefill_plan(M, K, N, "int8").c_plan() if regime else None
+    if a_ints.data_ptr() % 16 or b_nk.data_ptr() % 16:   # 16-byte pieces
+        raise ValueError("bfp_matmul_quantized: int8 operands must be "
+                         "16-byte aligned")
+    plan = (prefill_plan(M, K, N, "int8") if regime
+            else decode_matmul_plan(M, K, N, "int8")).c_plan()
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = build.function("bfp_matmul", "bfp_matmul_quantized",
@@ -224,4 +297,68 @@ def bfp_matmul_quantized(a_ints, a_scales, b_ints, b_scales) -> torch.Tensor:
             bs_nk.data_ptr(), out.data_ptr(), M, N, K, regime, plan,
             build.stream_ptr(dev))
     build.check("bfp_matmul", "bfp_matmul_quantized", rc, (M, K, N))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the decode form: the weight's Algorithm 1 folded into the loader
+# ---------------------------------------------------------------------------
+
+_FLOATS = (torch.bfloat16, torch.float32)
+
+
+def bfp_decode_matmul_plain(a_ints, a_scales, w):
+    """Plain version: kernel 1's plain version on ``w.T`` (each column's
+    64-groups along K), then kernel 5's."""
+    wi, wsc = absorbed_activation(w.T)
+    return bfp_matmul_quantized_plain(a_ints, a_scales, wi.T, wsc.T)
+
+
+def bfp_decode_matmul(a_ints, a_scales, w) -> torch.Tensor:
+    """(M, N) f32 for at most ``DECODE_M_MAX`` rows: the CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors. ``w`` (K, N) bf16/f32 is read
+    K-contiguous per column: a transposed view of a contiguous (N, K) tensor
+    (the tied embedding's ``embed.T``) as it is, a row-major one copied.
+    Counted as a launch of ``bfp_matmul_quantized`` (kernel 5 in either
+    form) and of ``bfp_decode_matmul``."""
+    if a_ints.ndim != 2 or w.ndim != 2:
+        raise ValueError("bfp_decode_matmul takes 2-D operands")
+    M, K = a_ints.shape
+    K2, N = w.shape
+    if K2 != K or K % GROUP or tuple(a_scales.shape) != (M, K // GROUP):
+        raise ValueError(f"a_ints {tuple(a_ints.shape)} / a_scales "
+                         f"{tuple(a_scales.shape)} do not match w "
+                         f"{tuple(w.shape)} (K % 64 == 0 required)")
+    if a_ints.dtype != torch.int8 or a_scales.dtype != torch.float32:
+        raise TypeError(f"bfp_decode_matmul: a_ints must be int8 and a_scales "
+                        f"float32, got {a_ints.dtype}, {a_scales.dtype}")
+    if w.dtype not in _FLOATS:
+        raise TypeError(f"bfp_decode_matmul quantizes bf16/f32, not {w.dtype}")
+    if not a_ints.device == a_scales.device == w.device:
+        raise ValueError(f"bfp_decode_matmul: operands on {a_ints.device}, "
+                         f"{a_scales.device}, {w.device}")
+    dev = a_ints.device
+    if dev.type == "cpu":
+        return bfp_decode_matmul_plain(a_ints, a_scales, w)
+    if dev.type != "cuda":
+        raise ValueError(f"bfp_decode_matmul: unsupported device {dev}")
+    if M == 0 or N == 0 or M > DECODE_M_MAX:
+        raise ValueError(f"bfp_decode_matmul takes 1 <= M <= {DECODE_M_MAX} "
+                         f"and N >= 1, got (M, K, N) = {(M, K, N)}")
+    if not (a_ints.is_contiguous() and a_scales.is_contiguous()):
+        raise ValueError("bfp_decode_matmul needs contiguous a_ints, a_scales")
+    w_nk = _k_contiguous(w, "w")
+    if a_ints.data_ptr() % 16 or w_nk.data_ptr() % 16:
+        raise ValueError("bfp_decode_matmul: a_ints and w must be 16-byte "
+                         "aligned")
+    bf16 = w.dtype == torch.bfloat16
+    plan = decode_matmul_plan(M, K, N, "bf16" if bf16 else "f32").c_plan()
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = build.function("bfp_decode_matmul", "bfp_decode_matmul",
+                        [p, p, p, p, i, i, i, ctypes.POINTER(i), i, p])
+    rc = fn(a_ints.data_ptr(), a_scales.data_ptr(), w_nk.data_ptr(),
+            out.data_ptr(), M, N, K, plan, int(bf16), build.stream_ptr(dev))
+    build.check("bfp_decode_matmul", "bfp_decode_matmul", rc, (M, K, N))
+    build.count_launch("bfp_matmul_quantized")
     return out

@@ -33,15 +33,19 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("hif4_quant", "fused_matmul", "fused_decode_matmul",
-           "fused_attention", "bfp_matmul")
+           "fused_attention", "bfp_matmul", "bfp_decode_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# "fused_packed_matmul" counts kernel 2 in either form; the decode form
-# (kernel 1 folded in) also counts under "fused_decode_matmul".
+# "fused_packed_matmul" counts kernel 2 in either form; its decode form
+# (kernel 1 on the activations folded in) also counts under
+# "fused_decode_matmul". Likewise "bfp_matmul_quantized" counts kernel 5 in
+# either form, and its decode form (kernel 1 on the weight folded in) also
+# under "bfp_decode_matmul".
 LAUNCHES: dict = {"hif4_quantize": 0, "fused_packed_matmul": 0,
                   "fused_decode_matmul": 0, "fused_decode_attention": 0,
-                  "fused_paged_decode_attention": 0, "bfp_matmul_quantized": 0}
+                  "fused_paged_decode_attention": 0, "bfp_matmul_quantized": 0,
+                  "bfp_decode_matmul": 0}
 
 # (kernel, (M, K, N)) -> launches, where the wrapper names its shape
 SHAPE_LAUNCHES: dict = {}

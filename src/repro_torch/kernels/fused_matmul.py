@@ -6,10 +6,10 @@ fused_packed_matmul`` as the CUDA kernel ``csrc/fused_matmul.cu``:
   a_ints (M, K) int8, a_scales (M, K/64) f32,
   codes_km (K/2, N) uint8, meta_km (K/64, N) int32 (uint32 bits) -> (M, N) f32
 
-The CTA bodies are kernel 5's, with a loader that expands the packed tile
-to absorbed int8 in shared memory: ``csrc/group_matmul.cuh`` (``__dp4a``)
-for at most ``DECODE_M_MAX`` rows, ``csrc/group_matmul_sm90.cuh`` (int8
-``wgmma``; launch plan ``bfp_matmul.prefill_plan``) above. Each 64-group's
+The CTA bodies expand the packed tile to absorbed int8 in shared memory:
+``csrc/group_matmul.cuh`` (``__dp4a``) for at most ``DECODE_M_MAX`` rows,
+``csrc/group_matmul_sm90.cuh`` (int8 ``wgmma``, kernel 5's body above 32
+rows too; launch plan ``bfp_matmul.prefill_plan``) above. Each 64-group's
 dot is exact in int32 and rescaled in f32 by ``a_scale * b_scale``, summed
 in group order, and written in ``out_dtype`` (f32, or bf16 rounded from
 the f32 value as ``.to()`` rounds it). :func:`fused_packed_matmul_plain` is
@@ -42,6 +42,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.bfp_matmul import (
     DECODE_M_MAX,
     GROUP,
+    H100_SMS,
     SMEM_PER_CTA_MAX,
     bfp_matmul_quantized_plain,
     prefill_plan,
@@ -128,7 +129,6 @@ def fused_packed_matmul(a_ints, a_scales, codes_km, meta_km,
 DECODE_TILE_N = 32          # columns per CTA: 16-byte code row pieces
 DECODE_MAX_SPLIT = 8        # the largest portable thread block cluster
 _DECODE_B_STRIDE = 17       # int32 words per expanded column
-H100_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,18 @@
 """User-facing HiF4 A-W quantized matmul over the kernels (port of
-``repro/kernels/ops.py``): on CUDA tensors kernel 1 quantizes and kernel 5
-contracts; on CPU tensors their plain versions run."""
+``repro/kernels/ops.py``): kernel 1 quantizes the activations; at most
+``DECODE_M_MAX`` rows the decode form of kernel 5 quantizes the weight in
+its loader and contracts (two launches), above kernel 1 quantizes the
+weight too and kernel 5 contracts (three). On CPU tensors their plain
+versions run, bitwise the same."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.bfp_matmul import bfp_matmul_quantized
+from repro_torch.kernels.bfp_matmul import (
+    DECODE_M_MAX,
+    bfp_decode_matmul,
+    bfp_matmul_quantized,
+)
 from repro_torch.kernels.hif4_quant import hif4_quantize
 
 
@@ -19,8 +26,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (Algorithm 1), contracted by the fixed-point kernel (§III.B). ``w`` is
     quantized through its transpose; when ``w`` is itself a transposed view
     (the tied LM head's ``embed.T``) neither quantization nor contraction
-    copies it."""
+    copies it. Which route a call takes depends on M alone: the decode form
+    for at most ``DECODE_M_MAX`` rows, kernels 1 and 5 above."""
     ai, ascale = hif4_quantize(x.contiguous())
+    if x.shape[0] <= DECODE_M_MAX:
+        return bfp_decode_matmul(ai, ascale, w)
     wi, wscale = hif4_quantize(w.T.contiguous())
     return bfp_matmul_quantized(ai, ascale, wi.T, wscale.T)
 

@@ -16,8 +16,9 @@
 and runs a quantized dense weight through the fixed-point route: with a
 policy JSON whose rules quantize ``lm_head`` (e.g. ``*`` -> hif4, then
 ``embed`` and ``*.router`` -> none), the tied LM head quantizes the
-embedding and the activations on every call (kernel 1 twice) and contracts
-them with ``bfp_matmul_quantized`` (kernel 5). ``--quant`` and
+activations (kernel 1) and the embedding on every call: at most 32 rows in
+the loader of kernel 5's decode form (``bfp_decode_matmul``), above by
+kernel 1 again, then ``bfp_matmul_quantized`` (kernel 5). ``--quant`` and
 ``uniform:<fmt>`` take hif4, nvfp4, nvfp4_pts and mxfp4; the baselines, and
 ``--policy nvfp4-baseline``, serve fake-quant (no packed container exists
 for them).
@@ -38,7 +39,11 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core import kvcache
-from repro_torch.core.engine import attention_dispatch_info, packed_dispatch_info
+from repro_torch.core.engine import (
+    attention_dispatch_info,
+    dense_dispatch_info,
+    packed_dispatch_info,
+)
 from repro_torch.core.policy import get_policy
 from repro_torch.core.qlinear import PackedW, QuantConfig
 from repro_torch.device import resolve_device
@@ -118,6 +123,21 @@ def _print_kernel_dispatch(serving_params, ctx, args, device):
     if info["decode_tiles"] is not None:
         line += (f"; decode {info['decode_kernel']}={info['decode_tiles']}, "
                  f"prefill {info['prefill_kernel']}={info['prefill_tiles']}")
+    print(line)
+
+
+def _print_head_dispatch(cfg, ctx, args, device):
+    """The LM head's line when it runs the dense pallas route: every call
+    has one row per request (the prefill's last position, then each decode
+    step's token)."""
+    info = dense_dispatch_info(ctx.site_quant("lm_head"), cfg.d_model,
+                               cfg.vocab, m=args.batch, device=device)
+    if not info["pallas"]:
+        return
+    line = (f"dense matmul (lm_head): [{info['execution']}] on (K={cfg.d_model}, "
+            f"N={cfg.vocab})")
+    if info["route"] is not None:
+        line += f"; {args.batch} rows: {info['route']} plan={info['plan']}"
     print(line)
 
 
@@ -204,6 +224,7 @@ def main(argv=None) -> int:
               f"{nvals} values = {nbytes / nvals:.4f} B/value "
               f"(bf16 would be {2 * nvals / 2**20:.2f} MiB)")
         _print_kernel_dispatch(serving_params, ctx, args, device)
+        _print_head_dispatch(cfg, ctx, args, device)
     else:
         print(f"impl={args.impl}: no packed weights resident "
               f"(fake-quant bf16 artifact)")

@@ -26,7 +26,17 @@ prologue (fused_decode_matmul) BITWISE equal to its plain version (the pair
 hif4_quantize -> fused_packed_matmul, then the cast) at qwen1.5-0.5b's three
 decode shapes, M in {1, 8, 16, 32}, bf16 and f32 in and out, and to kernel 5
 on the absorbed expansion of the weight; a NaN meta word reaches only its
-column; one launch per decode linear of the engine.
+column; one launch per decode linear of the engine. Kernel 5 at most 32
+rows (its decode body, csrc/group_matmul_decode.cuh) BITWISE its plain
+version and kernel 2 on the absorbed expansion at M = 1, 8, 17, 32; its
+decode form (bfp_decode_matmul: the weight's Algorithm 1 in the loader)
+BITWISE its plain version and kernel 1 on w.T then kernel 5 at M 1, 8, 17,
+32, K 320 and 1024, the LM head's (8, 1024, 151 936), bf16 and f32
+weights on a transposed view that is not copied; a NaN or Inf in one
+weight group reaches exactly what the plain version's reaches; the
+launcher refuses a plan unlike its own; the engine's dense pallas route
+launches kernel 1 + the decode form up to 32 rows, kernel 1 twice +
+kernel 5 above.
 """
 import dataclasses
 
@@ -531,3 +541,135 @@ def test_engine_decode_linear_is_one_launch(cuda, rows):
     assert build.LAUNCHES["hif4_quantize"] == int(not decode)
     ref = TM.fused_decode_matmul_plain(x.reshape(rows, 1024), pw.codes, pw.meta)
     assert torch.equal(_bits(y.reshape(rows, 2816)), _bits(ref))
+
+
+# ---------------------------------------------------------------------------
+# kernel 5's decode body, and its decode form: bfp_decode_matmul
+# ---------------------------------------------------------------------------
+
+HEAD_CASES = ([(m, k, 1000) for m in (1, 8, 17, 32) for k in (320, 1024)]
+              + [(8, 1024, 151936)])
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("m, k, n", HEAD_CASES)
+def test_head_decode_form_bitwise_vs_plain(cuda, m, k, n, dtype, monkeypatch):
+    g = torch.Generator().manual_seed(m + k)
+    embed = (torch.randn(n, k, generator=g) * 0.02).to(DT[dtype]).to(cuda)
+    ai, asc = TQ.hif4_quantize(_act(24 + m, m, k, cuda))
+    seen = []
+    function = build.function
+
+    def spy(lib, name, argtypes):
+        fn = function(lib, name, argtypes)
+        return lambda *args: (seen.append(args), fn(*args))[1]
+
+    monkeypatch.setattr(build, "function", spy)
+    build.reset_launches()
+    y = TB.bfp_decode_matmul(ai, asc, embed.T)
+    assert seen[-1][2] == embed.data_ptr()            # the view, not a copy
+    assert build.LAUNCHES["bfp_decode_matmul"] == 1
+    assert build.LAUNCHES["bfp_matmul_quantized"] == 1
+    assert build.LAUNCHES["hif4_quantize"] == 0
+    assert build.SHAPE_LAUNCHES == {("bfp_decode_matmul", (m, k, n)): 1}
+    ref = TB.bfp_decode_matmul_plain(ai, asc, embed.T)
+    assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
+    wi, wsc = TQ.hif4_quantize(embed)
+    y5 = TB.bfp_matmul_quantized(ai, asc, wi.T, wsc.T)
+    assert torch.equal(y.view(torch.int32), y5.view(torch.int32))
+
+
+@pytest.mark.parametrize("bad", ["nan", "inf"])
+def test_head_decode_form_bad_weight_reaches_what_the_plain_version_does(cuda, bad):
+    g = torch.Generator().manual_seed(26)
+    embed = (torch.randn(1000, 1024, generator=g) * 0.02).to(torch.bfloat16).to(cuda)
+    embed[997, 70] = float(bad)                       # group 1 of column 997
+    ai, asc = TQ.hif4_quantize(_act(27, 8, 1024, cuda))
+    y = TB.bfp_decode_matmul(ai, asc, embed.T)
+    ref = TB.bfp_decode_matmul_plain(ai, asc, embed.T)
+    want = torch.zeros_like(y, dtype=torch.bool)
+    if bad == "nan":
+        want[:, 997] = True
+    assert torch.equal(y.isnan(), want) and torch.equal(ref.isnan(), want)
+    keep = ~want
+    assert torch.equal(y[keep].view(torch.int32), ref[keep].view(torch.int32))
+
+
+@pytest.mark.parametrize("m", [1, 8, 17, 32])
+def test_bfp_matmul_decode_body_bitwise_vs_plain_and_fused_matmul(cuda, m):
+    pw = _packed(1024, 2816, cuda, seed=28)
+    ai, asc = TQ.hif4_quantize(_act(28 + m, m, 1024, cuda))
+    bi, bsc = engine.packed_to_absorbed(pw)
+    build.reset_launches()
+    y5 = TB.bfp_matmul_quantized(ai, asc, bi, bsc)
+    assert build.LAUNCHES["bfp_matmul_quantized"] == 1
+    assert build.LAUNCHES["bfp_decode_matmul"] == 0
+    y2 = TM.fused_packed_matmul(ai, asc, pw.codes, pw.meta)
+    ref = TB.bfp_matmul_quantized_plain(ai, asc, bi, bsc)
+    assert torch.equal(y5.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(y5.view(torch.int32), y2.view(torch.int32))
+
+
+@pytest.mark.parametrize("field", ["rows", "stages", "warps", "ctas_per_sm",
+                                   "grid", "smem_bytes"])
+def test_decode_launcher_refuses_a_plan_unlike_its_own(cuda, field, monkeypatch):
+    g = torch.Generator().manual_seed(29)
+    embed = (torch.randn(96, 256, generator=g) * 0.02).to(torch.bfloat16).to(cuda)
+    ai, asc = TQ.hif4_quantize(_act(29, 8, 256, cuda))
+    wi, wsc = TQ.hif4_quantize(embed)
+    real = TB.decode_matmul_plan
+
+    def off(*args, **kwargs):
+        plan = real(*args, **kwargs)
+        return dataclasses.replace(plan, **{field: getattr(plan, field) + 1})
+
+    monkeypatch.setattr(TB, "decode_matmul_plan", off)
+    build.reset_launches()
+    with pytest.raises(RuntimeError):
+        TB.bfp_matmul_quantized(ai, asc, wi.T, wsc.T)
+    with pytest.raises(RuntimeError):
+        TB.bfp_decode_matmul(ai, asc, embed.T)
+    assert sum(build.LAUNCHES.values()) == 0
+
+
+def test_head_decode_form_refuses_what_it_does_not_take(cuda):
+    g = torch.Generator().manual_seed(30)
+    embed = (torch.randn(96, 256, generator=g) * 0.02).to(torch.bfloat16).to(cuda)
+    build.reset_launches()
+    ai, asc = TQ.hif4_quantize(_act(30, 33, 256, cuda))
+    with pytest.raises(ValueError):                   # more than 32 rows
+        TB.bfp_decode_matmul(ai, asc, embed.T)
+    with pytest.raises(ValueError):                   # empty work
+        TB.bfp_decode_matmul(ai[:0], asc[:0], embed.T)
+    buf = torch.empty(96 * 256 + 8, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[8:].view(96, 256)                   # 16 bytes on: aligned
+    shifted.copy_(embed)
+    y = TB.bfp_decode_matmul(ai[:8], asc[:8], shifted.T)
+    shifted = buf[1:96 * 256 + 1].view(96, 256)       # 2 bytes on
+    with pytest.raises(ValueError):
+        TB.bfp_decode_matmul(ai[:8], asc[:8], shifted.T)
+    assert build.LAUNCHES["bfp_decode_matmul"] == 1
+    assert torch.equal(y.view(torch.int32), TB.bfp_decode_matmul_plain(
+        ai[:8], asc[:8], embed.T).view(torch.int32))
+
+
+@pytest.mark.parametrize("rows", [8, 32, 40])
+def test_engine_dense_pallas_route_launches(cuda, rows):
+    """The LM head's route: at most 32 rows kernel 1 on x, then the decode
+    form; above, kernel 1 on x and on w.T, then kernel 5; the bits of the
+    plain composition, cast to x's dtype."""
+    from repro_torch.core.qlinear import QuantConfig
+
+    g = torch.Generator().manual_seed(31)
+    embed = (torch.randn(2000, 1024, generator=g) * 0.02).to(torch.bfloat16).to(cuda)
+    x = _act(31, rows, 1024, cuda).reshape(2, rows // 2, 1024)
+    build.reset_launches()
+    y = engine.matmul(x, embed.T, engine.EngineCtx(QuantConfig(fmt="hif4",
+                                                               impl="pallas")))
+    decode = rows <= TB.DECODE_M_MAX
+    assert build.LAUNCHES["hif4_quantize"] == (1 if decode else 2)
+    assert build.LAUNCHES["bfp_decode_matmul"] == int(decode)
+    assert build.LAUNCHES["bfp_matmul_quantized"] == 1
+    ai, asc = TQ.absorbed_activation(x.reshape(rows, 1024))
+    ref = TB.bfp_decode_matmul_plain(ai, asc, embed.T).to(torch.bfloat16)
+    assert torch.equal(_bits(y.reshape(rows, 2000)), _bits(ref))

@@ -262,8 +262,10 @@ def test_launch_counters_only_count_kernel_launches():
     pw = TPackedW.from_dense(torch.randn(128, 32).to(torch.bfloat16)).to_kernel_layout()
     TM.fused_packed_matmul(ai, asc, pw.codes, pw.meta)
     TM.fused_decode_matmul(x, pw.codes, pw.meta)
+    TB.bfp_decode_matmul(ai, asc, torch.randn(32, 128).T)
     assert build.LAUNCHES == {"hif4_quantize": 0, "fused_packed_matmul": 0,
                               "fused_decode_matmul": 0,
                               "fused_decode_attention": 0,
                               "fused_paged_decode_attention": 0,
-                              "bfp_matmul_quantized": 0}
+                              "bfp_matmul_quantized": 0,
+                              "bfp_decode_matmul": 0}
