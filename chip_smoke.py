@@ -72,6 +72,20 @@ Phases (any failure ends the run with a nonzero exit):
              request's tokens must equal its solo serve at attn_kv_block=P,
              kernel 4 must launch exactly 24 x the decode steps and kernel 3
              never.
+8. robust  — the same weights, requests and pool: a serving artifact saved
+             (packed on the card) and loaded back onto it, serving the
+             in-memory prepare's tokens, and one flipped byte raising
+             ArtifactIntegrityError naming its leaf; GuardConfig() beside
+             the unguarded run at full depth: the same tokens and launch
+             counts, no more synchronize warnings under
+             torch.cuda.set_sync_debug_mode("warn"), decode ms/step of
+             each; page_corruption, code_flip (paged), nan_activation
+             (slot scheduler, bf16 KV), pool_starvation and
+             snapshot_truncation, each caught by the guard the reference
+             names, on the first 2 layers at full width, survivors
+             bitwise an uninjected run; crash_mid_decode with a pool
+             checkpoint every chunk, resumed bitwise the guarded run, with
+             the recovery report.
 
 The last lines are the kernel records as one JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. The script imports
@@ -1718,6 +1732,18 @@ def _scaled(tree, f: float):
     return tree * f
 
 
+def paged_weights(cfg, seed: int) -> dict:
+    """The paged phase's raw weights on the host: the blocks and the
+    embedding at 5x the init's scale, so greedy tokens change from step to
+    step (at the init's scale they repeat one token) and a wrong KV byte
+    shows in the tokens."""
+    from repro_torch.models import lm
+
+    params = lm.init_params(cfg, seed + 4, device="cpu")
+    return dict(params, blocks=_scaled(params["blocks"], 5.0),
+                embed=params["embed"] * 5.0)
+
+
 def phase_paged(dev, seed, records):
     """The paged path at full width and depth: serve_requests with the HiF4
     page pool (kernel 4 for every layer of every decode step), held request
@@ -1727,7 +1753,6 @@ def phase_paged(dev, seed, records):
     from repro_torch.core import engine, kvcache
     from repro_torch.kernels import build
     from repro_torch.kernels.bfp_matmul import DECODE_M_MAX
-    from repro_torch.models import lm
     from repro_torch.runtime import serve_loop
     from repro_torch.runtime.serve_loop import (
         ServeConfig, prepare_params_for_serving, serve, serve_requests)
@@ -1737,12 +1762,7 @@ def phase_paged(dev, seed, records):
     P, new = t["page_tokens"], t["new_tokens"]
     ctx = dataclasses.replace(serving_setup(cfg), attn_q_chunk=t["flash_chunk"],
                               attn_k_chunk=t["flash_chunk"])
-    # the blocks and the embedding at 5x the init's scale: greedy tokens then
-    # change from step to step (at the init's scale they repeat one token),
-    # so a wrong KV byte shows in the tokens
-    params = lm.init_params(cfg, seed + 4, device="cpu")
-    params = dict(params, blocks=_scaled(params["blocks"], 5.0),
-                  embed=params["embed"] * 5.0)
+    params = paged_weights(cfg, seed)
     sparams = prepare_params_for_serving(params, cfg, ctx.plan, device=dev)
     del params
     reqs = paged_requests(cfg.vocab, seed)
@@ -1851,12 +1871,322 @@ def phase_paged(dev, seed, records):
     check(not differ, f"requests {differ}: paged tokens differ from solo")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: serving artifacts, the guard, fault injection, crash recovery
+# ---------------------------------------------------------------------------
+
+# the fault runs' victim: request 3 owns tail pages no other request shares
+# (request 2 shares request 1's tail page) and is resident from the first
+# chunk on. A paged run at full depth takes ~35 s, most of it outside the
+# decode chunks (admitting the 12 prompts), so the fault runs (step 3) are
+# cut to the first ``fault_layers`` layers at full width; the artifact is
+# served on two of the requests (paged == solo, so their tokens are the
+# full run's)
+ROBUST = {"victim": 3, "fault_layers": 2, "slot_requests": 4, "slot_slots": 2,
+          "artifact_requests": (0, 3)}
+
+
+def _first_layers(tree, n: int):
+    """The first ``n`` layers of a stacked-layer subtree (PackedW too)."""
+    from repro_torch.core.qlinear import PackedW
+
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    if isinstance(tree, PackedW):
+        return tree._replace(codes=tree.codes[:n], meta=tree.meta[:n])
+    return tree[:n]
+
+
+class _SyncCount:
+    """Counts the synchronize warnings of ``torch.cuda.set_sync_debug_mode``
+    inside its block."""
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        self._catch = warnings.catch_warnings(record=True)
+        self.records = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        self.n = sum("synchroniz" in str(w.message) for w in self.records)
+        return False
+
+
+def phase_robust(dev, seed, records):
+    """The robustness slice on the paged path at full width (the paged
+    phase's weights, requests and pool): a serving artifact saved and loaded
+    through the card, the guard (tokens, launches and synchronizes beside
+    the unguarded run) and a crash resumed from its journal at full depth;
+    the fault classes on the first ``ROBUST["fault_layers"]`` layers."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.core import kvcache
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    from repro_torch.runtime import guard, serve_loop
+    from repro_torch.runtime.faults import FaultInjector, FaultSpec, SimulatedCrash
+    from repro_torch.runtime.serve_loop import (
+        ServeConfig, load_serving_artifact, prepare_params_for_serving,
+        save_serving_artifact, serve_requests)
+
+    cfg = get_arch("qwen1.5-0.5b")
+    t = PAGED
+    P, new = t["page_tokens"], t["new_tokens"]
+    ctx = dataclasses.replace(serving_setup(cfg), attn_q_chunk=t["flash_chunk"],
+                              attn_k_chunk=t["flash_chunk"])
+    raw = paged_weights(cfg, seed)
+    sparams = prepare_params_for_serving(raw, cfg, ctx.plan, device=dev)
+    reqs = paged_requests(cfg.vocab, seed)
+    cap = -(-(max(len(r) for r in reqs) + new) // P) * P
+    sc = ServeConfig(max_new_tokens=new, decode_chunk=t["decode_chunk"],
+                     cache_capacity=cap, kv_format="hif4", kv_pages=t["kv_pages"],
+                     kv_page_tokens=P)
+    gsc = dataclasses.replace(sc, guard=guard.GuardConfig())
+    chunk_fns = {name: getattr(serve_loop, name)
+                 for name in ("_decode_chunk", "_decode_chunk_guarded")}
+    timing: list = []
+
+    def timed(fn):
+        # CUDA events around each chunk, read after the run: no synchronize
+        # of their own inside the run
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            timing.append((start, end, args[5 if fn is chunk_fns[
+                "_decode_chunk_guarded"] else 4]))
+            return out
+        return run
+
+    def serve(params, scfg, reqs=reqs, slots=t["slots"], arch=cfg, **kw):
+        stats: dict = {}
+        res = serve_requests(arch, params, reqs, ctx, scfg, slots=slots,
+                             stats=stats, device=dev, **kw)
+        return res, stats
+
+    class Preempted(FaultInjector):
+        """Records the requests a run preempts; corrupts nothing."""
+
+        def __init__(self):
+            super().__init__(FaultSpec(kind="snapshot_truncation",
+                                       target_request=-1))
+            self.rids = []
+
+        def poison_snapshot(self, pages, rid):
+            self.rids.append(rid)
+            return super().poison_snapshot(pages, rid)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    tmp = tempfile.mkdtemp(prefix=".robust-", dir=ROOT)
+    try:
+        # 1. artifact: saved from the raw weights (packed on the card), loaded
+        #    back onto the card; served below beside the in-memory prepare
+        art = os.path.join(tmp, "artifact")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_serving_artifact(art, raw, cfg, ctx.plan, device=dev)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(art) for f in fs)
+        t0 = time.perf_counter()
+        loaded, policy = load_serving_artifact(art, cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"  artifact: {nbytes} B on disk ({policy.name}); save "
+              f"{save_s:.2f} s (packing on the card), load {load_s:.2f} s "
+              f"(sha256 verified, then to the card)")
+        check(policy.name == "paper-iv", f"artifact policy {policy.name}")
+
+        # 2. the guard beside the unguarded run: tokens, launches, syncs, times
+        serve(sparams, dataclasses.replace(sc, max_new_tokens=2), reqs[:1])
+        runs = {}
+        preempted = Preempted()
+        for name, scfg in (("unguarded", sc), ("guarded", gsc)):
+            setattr(serve_loop, "_decode_chunk",
+                    timed(chunk_fns["_decode_chunk"]))
+            setattr(serve_loop, "_decode_chunk_guarded",
+                    timed(chunk_fns["_decode_chunk_guarded"]))
+            timing.clear()
+            torch.cuda.synchronize()
+            build.reset_launches()
+            try:
+                with _SyncCount() as syncs:
+                    res, stats = serve(sparams, scfg, injector=(
+                        preempted if scfg.guard is not None else None))
+            finally:
+                for fn_name, fn in chunk_fns.items():
+                    setattr(serve_loop, fn_name, fn)
+            torch.cuda.synchronize()
+            steps = sum(n for _, _, n in timing)
+            ms = sum(a.elapsed_time(b) for a, b, _ in timing)
+            runs[name] = dict(res=res, stats=stats, launches=dict(build.LAUNCHES),
+                              syncs=syncs.n, chunks=len(timing),
+                              ms_step=ms / steps)
+            print(f"  {name}: {ms / steps:.2f} ms per decode step ({len(timing)} "
+                  f"chunks, {steps} steps), {syncs.n} synchronize warnings "
+                  f"({syncs.n / len(timing):.1f} per chunk), launches "
+                  f"{ {k: n for k, n in build.LAUNCHES.items() if n} }")
+        plain, guarded = runs["unguarded"], runs["guarded"]
+        base = guarded["res"]
+        check(same(plain["res"], base), "guarded tokens differ from unguarded")
+        check(all(r["status"] == "ok" for r in guarded["stats"]["reports"].values()),
+              f"guarded reports {guarded['stats']['reports']}")
+        check(guarded["stats"]["pool_audit"]["live"] == 0,
+              f"pool audit {guarded['stats']['pool_audit']}")
+        check(guarded["launches"] == plain["launches"],
+              f"launches {guarded['launches']} != unguarded {plain['launches']}")
+        check(guarded["syncs"] <= plain["syncs"],
+              f"guarded run: {guarded['syncs']} synchronizes > {plain['syncs']}")
+        check(guarded["stats"]["preemptions"] >= 1, "no preemption in the run")
+        print(f"  guarded == unguarded tokens; decode {guarded['ms_step']:.2f} vs "
+              f"{plain['ms_step']:.2f} ms/step; {card_line()}")
+        picked = ROBUST["artifact_requests"]
+        res, _ = serve(loaded, gsc, [reqs[i] for i in picked], len(picked))
+        check(same(res, [base[i] for i in picked]), "the loaded artifact's "
+              "tokens differ from the in-memory prepare's")
+        print(f"  artifact served (requests {picked}): tokens bitwise the "
+              "in-memory prepare's")
+        leaves = tree_leaves(lm.realize_packed(
+            lm.packed_overlay(lm.abstract_params(cfg), ctx.plan),
+            lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta")))
+        name = "['blocks']['attn']['wq']"
+        index = next(i for i, (path, _, _) in enumerate(leaves)
+                     if guard.keystr(path) == name)
+        path = os.path.join(art, "step_00000000", f"arr_{index:05d}.npy")
+        blob = bytearray(open(path, "rb").read())
+        blob[-1] ^= 0x10
+        open(path, "wb").write(bytes(blob))
+        try:
+            load_serving_artifact(art, cfg, device=dev)
+            raise PhaseError("a flipped artifact byte loaded without an error")
+        except guard.ArtifactIntegrityError as e:
+            check(f"{name}: codes_sha256 mismatch" in str(e),
+                  f"integrity error does not name {name}: {e}")
+            print(f"  flipped byte in {os.path.basename(path)}: "
+                  f"ArtifactIntegrityError names {name}")
+        del loaded
+        shutil.rmtree(art)
+
+        # 3. faults, on the first layers: each caught by the guard the
+        #    reference names; survivors bitwise the uninjected run
+        victim = ROBUST["victim"]
+        cut = dataclasses.replace(cfg, n_layers=ROBUST["fault_layers"])
+        cparams = dict(sparams, blocks=_first_layers(sparams["blocks"],
+                                                     cut.n_layers))
+        cbase, _ = serve(cparams, gsc, arch=cut)
+        print(f"  fault runs on the first {cut.n_layers} of {cfg.n_layers} "
+              f"layers at full width")
+
+        def contained(label, res, stats, inj, baseline, detector):
+            rep = stats["reports"][victim]
+            check(inj.fired, f"{label}: the fault never fired")
+            check(rep["status"] in ("retried", "quarantined")
+                  and rep["detail"].startswith(detector),
+                  f"{label}: victim report {rep} (expected {detector})")
+            ok = [i for i, r in stats["reports"].items() if r["status"] == "ok"]
+            check(all(torch.equal(res[i], baseline[i]) for i in ok),
+                  f"{label}: a survivor's tokens changed")
+            print(f"  {label}: {inj.events[0][0]} on page/slot "
+                  f"{inj.events[0][1].get('page', inj.events[0][1].get('slot'))}"
+                  f" -> request {victim} {rep['status']} ({rep['detail']}); "
+                  f"{len(ok)} survivors bitwise; counts "
+                  f"{ {k: stats[k] for k in ('quarantined', 'retried', 'rejected')} }")
+
+        for kind, seed_, detector in (("page_corruption", 1, "meta_nan"),
+                                      ("code_flip", 0, "page_checksum")):
+            inj = FaultInjector(FaultSpec(kind=kind, seed=seed_,
+                                          target_request=victim, after_chunk=1))
+            t0 = time.perf_counter()
+            res, stats = serve(cparams, gsc, arch=cut, injector=inj)
+            contained(f"{kind} ({time.perf_counter() - t0:.1f} s)", res, stats,
+                      inj, cbase, detector)
+        n_slot = ROBUST["slot_requests"]
+        ssc = ServeConfig(max_new_tokens=new, decode_chunk=t["decode_chunk"],
+                          cache_capacity=cap, kv_format="bf16",
+                          guard=guard.GuardConfig())
+        slot_base, _ = serve(cparams, ssc, reqs[:n_slot], ROBUST["slot_slots"],
+                             arch=cut)
+        inj = FaultInjector(FaultSpec(kind="nan_activation", target_request=victim,
+                                      after_chunk=1))
+        t0 = time.perf_counter()
+        res, stats = serve(cparams, ssc, reqs[:n_slot], ROBUST["slot_slots"],
+                           arch=cut, injector=inj)
+        contained(f"nan_activation, slot scheduler, bf16 KV, {n_slot} requests "
+                  f"({time.perf_counter() - t0:.1f} s)", res, stats, inj,
+                  slot_base, "nan_logits")
+        inj = FaultInjector(FaultSpec(kind="pool_starvation"))
+        res, stats = serve(cparams, gsc, arch=cut, injector=inj)
+        check(stats["rejected"] == len(reqs) and all(
+            r["status"] == "rejected" for r in stats["reports"].values()),
+            f"pool_starvation: {stats['reports']}")
+        print(f"  pool_starvation: {stats['rejected']} of {len(reqs)} requests "
+              f"rejected after {stats['reports'][0]['retries']} retries")
+
+        # the paged schedule does not depend on the tokens: the cut run
+        # preempts the request the guarded run preempted
+        check(preempted.rids, "no preemption to corrupt")
+        target = preempted.rids[0]
+        inj = FaultInjector(FaultSpec(kind="snapshot_truncation", seed=0,
+                                      target_request=target, bits=1))
+        res, stats = serve(cparams, gsc, arch=cut, injector=inj)
+        rep = stats["reports"][target]
+        check(inj.fired and rep["status"] == "retried"
+              and rep["detail"].startswith("snapshot_integrity")
+              and stats["snapshot_drops"] >= 1, f"snapshot_truncation: {rep}")
+        check(same(res, cbase), "snapshot_truncation: results not exact")
+        print(f"  snapshot_truncation on request {target}'s preemption: "
+              f"{rep['status']}, {stats['snapshot_drops']} snapshot dropped, "
+              f"every result bitwise the uninjected run")
+
+        # 4. crash mid-decode with a pool checkpoint every chunk, then resume
+        jdir = os.path.join(tmp, "journal")
+        jsc = dataclasses.replace(gsc, journal_dir=jdir, checkpoint_every=1)
+        inj = FaultInjector(FaultSpec(kind="crash_mid_decode", after_chunk=1))
+        try:
+            serve(sparams, jsc, injector=inj)
+            raise PhaseError("crash_mid_decode never fired")
+        except SimulatedCrash:
+            pass
+        t0 = time.perf_counter()
+        res, stats = serve(sparams, jsc, resume=True)
+        resume_s = time.perf_counter() - t0
+        rec = stats["recovery"]
+        check(same(res, base), "resumed tokens differ from the uninterrupted run")
+        check(rec["verified"] > 0, f"recovery verified nothing: {rec}")
+        from repro_torch.runtime.journal import journal_residency
+        print(f"  crash_mid_decode + resume: {rec['replayed']} replayed from the "
+              f"checkpoint, {rec['re_prefilled']} re-prefilled, "
+              f"{rec['completed']} completed, {rec['verified']} verified, "
+              f"recovery {rec['recovery_ms']:.1f} ms (plan build), resumed serve "
+              f"{resume_s:.1f} s; journal {journal_residency(jdir)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of repro_torch")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (kernels,serve,pallas,"
-                         "e2e,paged); default all")
+                         "e2e,paged,robust); default all")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
 
@@ -1889,7 +2219,8 @@ def main(argv=None) -> int:
               ("serve", lambda: phase_serve(dev, args.seed, records)),
               ("pallas", lambda: phase_pallas(dev, args.seed, records)),
               ("e2e", lambda: phase_e2e(dev, args.seed)),
-              ("paged", lambda: phase_paged(dev, args.seed, records))]
+              ("paged", lambda: phase_paged(dev, args.seed, records)),
+              ("robust", lambda: phase_robust(dev, args.seed, records))]
     try:
         print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")

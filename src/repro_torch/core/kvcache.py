@@ -25,8 +25,8 @@ the decode loop and the scheduler then never copy the cache or the pool.
 The paged pool (docs/FORMATS.md "Paged KV-cache pool") keeps the
 kernel-tile layout with a leading page axis, leaves (L, NP, F, P), page 0
 the reserved scratch page; :class:`PagePool` is its host-side bookkeeping.
-The guard's pool helpers (``scrub_pages``, ``page_checksums``,
-``page_meta_nan_counts``) come with the guard.
+The guard's pool helpers (:func:`scrub_pages`, :func:`page_checksums`,
+:func:`page_meta_nan_counts`) reduce it per page on the device.
 """
 from __future__ import annotations
 
@@ -335,6 +335,63 @@ def append_token_paged(pool_t: dict, kv_new: torch.Tensor, pos: torch.Tensor,
     return pool_t
 
 
+def scrub_pages(pool_t: dict, page_ids: torch.Tensor) -> dict:
+    """Zero every byte of the selected pages (all layers), in place.
+
+    Quarantine support: a poisoned slot's freed pages are scrubbed so stale
+    corruption (e.g. a 0xFF NaN sentinel) cannot leak into the next
+    sequence the allocator hands the page to. Zero pages decode to zeros,
+    like freshly initialized ones.
+    """
+    ids = page_ids.to(device=pool_t["meta"].device, dtype=torch.long)
+    for a in pool_t.values():
+        a.index_fill_(1, ids, 0)
+    return pool_t
+
+
+# Odd multipliers decorrelate the three leaf sums. Any SINGLE bit flip in one
+# leaf element changes that leaf's modular sum by +-2^j (j < 32), and an odd
+# multiple of +-2^j is never 0 mod 2^32, so one flipped bit anywhere in a
+# page provably changes the page checksum.
+_CKSUM_META_MULT = 0x9E3779B1
+_CKSUM_TAIL_MULT = 0x85EBCA77
+U32_MASK = 0xFFFFFFFF
+
+
+def _mul_u32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """(a * m) mod 2^32 for int64 ``a`` in [0, 2^32) and a 32-bit ``m``,
+    without passing 2^63: m splits into 16-bit halves."""
+    hi, lo = m >> 16, m & 0xFFFF
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & U32_MASK
+
+
+def page_checksums(pool_t: dict) -> torch.Tensor:
+    """(n_pages,) content checksum of each pool page: the reference's uint32
+    modular sum over codes + meta + tail, as int64 values in [0, 2^32).
+
+    Reduced on the device, so an audit moves n_pages words to the host
+    instead of the pool's bytes. Any single bit flip in a page
+    changes its checksum (see the multiplier note above).
+    """
+    dims = (0, 2, 3)
+    sums = pool_t["codes"].sum(dim=dims, dtype=torch.int64) & U32_MASK
+    # an int32 word and its uint32 bits are equal mod 2^32
+    meta = pool_t["meta"].sum(dim=dims, dtype=torch.int64) & U32_MASK
+    sums = (sums + _mul_u32(meta, _CKSUM_META_MULT)) & U32_MASK
+    if pool_t["tail"].shape[2]:
+        bits = pool_t["tail"].view(torch.int16).to(torch.int32) & 0xFFFF
+        tail = bits.sum(dim=dims, dtype=torch.int64) & U32_MASK
+        sums = (sums + _mul_u32(tail, _CKSUM_TAIL_MULT)) & U32_MASK
+    return sums
+
+
+def page_meta_nan_counts(pool_t: dict) -> torch.Tensor:
+    """(n_pages,) int32 count of E6M2 NaN-sentinel meta words per page.
+    Algorithm 1 never emits the 0xFF scale code, so any nonzero count marks
+    a corrupted page, the hot partial page included."""
+    return hif4.meta_nan_mask(pool_t["meta"]).sum(dim=(0, 2, 3), dtype=torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Paged pool: host-side allocator / sharing metadata
 # ---------------------------------------------------------------------------
@@ -420,18 +477,23 @@ class PagePool:
         else:
             self.ref[pid] += 1
 
-    def release(self, pid: int):
+    def release(self, pid: int, keep_cached: bool = True):
         """Drop a holder. A hashed full page with no holders parks in the
-        LRU cache (still shareable, evictable); anything else frees."""
+        LRU cache (still shareable, evictable) unless ``keep_cached`` is
+        False (the guard's quarantine: its hash goes too); anything else
+        frees."""
         self.ref[pid] -= 1
         if self.ref[pid] > 0:
             return
         del self.ref[pid]
         self.owner.pop(pid, None)
         self.partials.pop(pid, None)
-        if pid in self.key_of:
+        if keep_cached and pid in self.key_of:
             self.cached[pid] = None
         else:
+            key = self.key_of.pop(pid, None)
+            if key is not None:
+                self.full_hash.pop(key, None)
             self.free.append(pid)
 
     # -- sharing indexes ----------------------------------------------------

@@ -27,8 +27,24 @@ Prints the same residency, plan and dispatch lines as the JAX launcher
 (``repro.launch.serve``), then one line of tokens per request. Weights are
 random, made from ``--seed``; prompts too. ``--kv-pages N`` serves the
 requests through the paged HiF4 pool scheduler and prints its counters.
-``--guard``, ``--inject-fault``, ``--journal-dir`` and ``--resume`` are not
-yet ported and exit with a nonzero status.
+
+``--guard`` arms the health sentinels (NaN/Inf logits flag, per-chunk
+0xFF-meta and page-checksum audits, quarantine + qdq/bf16 fallback retry)
+and prints a status per request; ``--deadline-s`` adds a per-request
+deadline and ``--inject-fault kind[:key=value,...]`` one deterministic
+fault (both imply ``--guard``), e.g.
+``--inject-fault page_corruption:seed=1,target_request=1,after_chunk=1``.
+``--journal-dir DIR`` makes the serve crash-safe (write-ahead journal, and
+with ``--checkpoint-every N`` a pool checkpoint every N chunks); after a
+crash, including an injected ``crash_*`` fault, ``--resume`` recovers from
+DIR and prints the recovery report. These route serving through the
+request scheduler::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --reduced --device cpu --batch 2 --prompt-len 8 --new-tokens 6 \
+        --decode-chunk 2 --kv-format hif4 --kv-pages 12 --kv-page-tokens 8 \
+        --journal-dir DIR --checkpoint-every 1 \
+        --inject-fault crash_mid_decode:after_chunk=1     # then --resume
 """
 from __future__ import annotations
 
@@ -49,6 +65,9 @@ from repro_torch.core.qlinear import PackedW, QuantConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.common import ModelCtx
+from repro_torch.runtime import faults
+from repro_torch.runtime.guard import GuardConfig
+from repro_torch.runtime.journal import journal_residency
 from repro_torch.runtime.serve_loop import (
     ServeConfig,
     packed_weight_bytes,
@@ -57,8 +76,6 @@ from repro_torch.runtime.serve_loop import (
     serve,
     serve_requests,
 )
-
-NOT_YET_PORTED_FLAGS = ("guard", "inject_fault", "journal_dir", "resume")
 
 
 def _leaf_at(tree, path: str):
@@ -187,21 +204,41 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
-    for flag in NOT_YET_PORTED_FLAGS:
-        ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        nargs="?", const=True, help="not yet ported")
+    ap.add_argument("--guard", action="store_true",
+                    help="arm the serving health sentinels: NaN flag, packed-KV "
+                         "audits, quarantine + fallback retry, per-request "
+                         "status reports")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request wall-clock deadline (implies --guard)")
+    ap.add_argument("--inject-fault", default=None, metavar="SPEC",
+                    help="deterministic fault injection, kind[:key=value,...] "
+                         "with kinds " + "/".join(faults.FAULT_CLASSES)
+                         + " (implies --guard)")
+    ap.add_argument("--journal-dir", default=None, metavar="DIR",
+                    help="crash-safe serving: write-ahead request journal "
+                         "(+ pool checkpoints) under DIR")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="durable pool checkpoint every N decode chunks "
+                         "(0 = journal only; paged scheduler)")
+    ap.add_argument("--resume", action="store_true",
+                    help="recover from the journal in --journal-dir")
     return ap.parse_args(argv)
+
+
+def _print_journal_residency(directory):
+    res = journal_residency(directory)
+    print(f"journal residency [{directory}]: {res['journal_bytes']} B journal, "
+          f"{res['checkpoints']} checkpoint(s) = {res['checkpoint_bytes']} B")
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    for flag in NOT_YET_PORTED_FLAGS:
-        if getattr(args, flag) is not None:
-            print(f"--{flag.replace('_', '-')} is not yet ported to repro_torch",
-                  file=sys.stderr)
-            return 2
     device = resolve_device(args.device)
-    cfg = get_arch(args.arch)
+    try:
+        cfg = get_arch(args.arch)
+    except NotImplementedError as e:
+        print(e, file=sys.stderr)
+        return 2
     if args.reduced:
         cfg = cfg.reduced()
     kv = kvcache.KVCacheConfig(args.kv_format)
@@ -229,8 +266,15 @@ def main(argv=None) -> int:
         print(f"impl={args.impl}: no packed weights resident "
               f"(fake-quant bf16 artifact)")
 
+    guard = None
+    if args.guard or args.deadline_s is not None or args.inject_fault:
+        guard = GuardConfig(deadline_s=args.deadline_s)
+    injector = (faults.FaultInjector(faults.parse_fault(args.inject_fault))
+                if args.inject_fault else None)
     sc = ServeConfig(max_new_tokens=args.new_tokens, decode_chunk=args.decode_chunk,
-                     kv_pages=args.kv_pages, kv_page_tokens=args.kv_page_tokens)
+                     kv_pages=args.kv_pages, kv_page_tokens=args.kv_page_tokens,
+                     guard=guard, journal_dir=args.journal_dir,
+                     checkpoint_every=args.checkpoint_every)
     a = cfg.attn
     kv_fmt = resolve_kv_format(cfg, ctx.quant, sc, verbose=True)
     if args.kv_pages and kv_fmt != "hif4":
@@ -262,18 +306,55 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed + 1)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen)
     sparams = serving_params if nvals else params
-    if args.kv_pages:
-        stats: dict = {}
-        res = serve_requests(cfg, sparams, list(tokens), ctx, sc,
-                             slots=args.batch, stats=stats, device=device)
-        print(f"paged scheduler: max {stats['max_concurrent']} concurrent, "
-              f"{stats['shared_page_hits']} shared-page hits, "
-              f"{stats['preemptions']} preemptions, {stats['evictions']} LRU "
-              f"evictions, peak {stats['peak_live_pages']}/{args.kv_pages} "
-              f"pages live")
-        toks = torch.stack(res)
-    else:
-        toks = serve(cfg, sparams, {"tokens": tokens}, ctx, sc, device=device)
+    stats = None
+    try:
+        if args.kv_pages or guard is not None or args.journal_dir is not None:
+            # paged, guarded or journaled serving is per request: the
+            # request scheduler (paged with --kv-pages)
+            stats = {}
+            res = serve_requests(cfg, sparams, list(tokens), ctx, sc,
+                                 slots=args.batch, stats=stats, device=device,
+                                 injector=injector, resume=args.resume)
+            if args.kv_pages:
+                print(f"paged scheduler: max {stats['max_concurrent']} "
+                      f"concurrent, {stats['shared_page_hits']} shared-page "
+                      f"hits, {stats['preemptions']} preemptions, "
+                      f"{stats['evictions']} LRU evictions, peak "
+                      f"{stats['peak_live_pages']}/{args.kv_pages} pages live")
+            toks = torch.stack(res)
+        else:
+            toks = serve(cfg, sparams, {"tokens": tokens}, ctx, sc, device=device)
+    except faults.SimulatedCrash as crash:
+        # the injected process kill: report what the journal holds and exit
+        # cleanly, so a --resume run can follow
+        print(f"simulated crash: {crash}")
+        if args.journal_dir is not None:
+            _print_journal_residency(args.journal_dir)
+        print("resume with: --journal-dir", args.journal_dir, "--resume")
+        return 0
+    if args.journal_dir is not None:
+        _print_journal_residency(args.journal_dir)
+        if args.resume and "recovery" in stats:
+            rec = stats["recovery"]
+            print(f"recovery report: {rec['completed']} journaled results "
+                  f"injected, {rec['replayed']} residents restored from "
+                  f"checkpoint, {rec['re_prefilled']} re-prefilled, "
+                  f"{rec['dropped_bytes']} torn journal bytes dropped, "
+                  f"{rec['verified']} replay prefixes verified bitwise "
+                  f"({rec['recovery_ms']:.1f} ms plan build)")
+    if injector is not None:
+        for kind, detail in injector.events:
+            print(f"injected fault: {kind} {detail}")
+    if guard is not None:
+        counts = {k: stats[k] for k in
+                  ("quarantined", "retried", "rejected", "timeouts")}
+        print(f"guarded serving: {counts}")
+        for rid in sorted(stats["reports"]):
+            rep = stats["reports"][rid]
+            line = f"request {rid}: status={rep['status']}"
+            if rep["detail"]:
+                line += f" ({rep['detail']})"
+            print(line)
     for i in range(args.batch):
         print(f"request {i}: {toks[i].tolist()}")
     return 0

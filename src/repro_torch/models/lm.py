@@ -6,6 +6,8 @@
                                                 paged schedulers)
   prefill(params, batch, cfg, ctx)           -> (last-token logits, decode cache)
   decode_step(params, token, cache, cfg, ctx)-> (logits, cache)
+  packed_overlay / realize_packed            -> the packed artifact's tree
+                                                (serving-artifact load target)
 
 Params and caches are nested dicts of tensors in the reference's layout:
 stacked-layer leaves carry a leading L axis, and the forward walks the layers
@@ -15,6 +17,7 @@ decode cache is updated in place; a paged cache carries its page table
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -261,12 +264,71 @@ def quant_plan(cfg: ArchConfig, policy) -> QuantPlan:
 
 
 def _marker_geometry(site, axes: tuple):
-    """(out_name, c_name) logical axes of a packed STACKED site spec."""
+    """(k, n, L, out_name, c_name) of a packed STACKED site spec."""
     ca = site.contract_axes
     out_axes = tuple(a for a in range(1, len(site.shape)) if a not in ca)
+    k = math.prod(site.shape[a] for a in ca)
+    n = math.prod(site.shape[a] for a in out_axes) if out_axes else 1
     out_name = next((axes[a] for a in out_axes if axes[a] is not None), None)
     c_name = next((axes[a] for a in ca if axes[a] is not None), None)
-    return out_name, c_name
+    return k, n, site.shape[0], out_name, c_name
+
+
+def packed_overlay(specs: dict, plan: QuantPlan) -> dict:
+    """Replace the block-weight PSpecs the PLAN marks packed with packed
+    codes/meta PSpecs (artifact layout): a marker dict
+    ``{"__packed__": True, "codes": PSpec, "meta": PSpec, "shape2d": (K, N),
+    "dtype": ..., "axes2d": ...}`` that :func:`realize_packed` turns into a
+    :class:`PackedW`. Meta words are int32 here (the port's uint32 bits)."""
+
+    def walk(node, parts):
+        if isinstance(node, PSpec):
+            site = plan.get(".".join(parts))
+            if site is None or not site.packed:
+                return node
+            k, n, n_layers, out_name, c_name = _marker_geometry(site, node.axes)
+            return {
+                "__packed__": True,
+                "codes": PSpec((n_layers, n, k // 64, 32),
+                               ("layers", out_name, c_name, None),
+                               dtype=torch.uint8, init="zeros"),
+                "meta": PSpec((n_layers, n, k // 64), ("layers", out_name, c_name),
+                              dtype=torch.int32, init="zeros"),
+                "shape2d": (k, n),
+                "dtype": torch.bfloat16,
+                "axes2d": (out_name, c_name),
+            }
+        if isinstance(node, dict):
+            return {kk: walk(vv, parts + (kk,)) for kk, vv in node.items()}
+        return node
+
+    out = dict(specs)
+    for blk in STACKED_COLLECTIONS:
+        if blk in out:
+            out[blk] = walk(out[blk], (blk,))
+    return out
+
+
+def is_packed_marker(node) -> bool:
+    return isinstance(node, dict) and node.get("__packed__") is True
+
+
+def realize_packed(tree, leaf_fn):
+    """Convert packed markers into PackedW nodes (artifact layout) and every
+    other PSpec through ``leaf_fn(pspec)`` (e.g. an empty tensor on the
+    ``meta`` device as a load target, or a real buffer)."""
+    def walk(node):
+        if is_packed_marker(node):
+            return PackedW(leaf_fn(node["codes"]), leaf_fn(node["meta"]),
+                           tuple(node["shape2d"]), node["dtype"],
+                           tuple(node["axes2d"]))
+        if isinstance(node, PSpec):
+            return leaf_fn(node)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(tree)
 
 
 def pack_params_for_serving(params: dict, cfg: ArchConfig,
@@ -288,7 +350,7 @@ def pack_params_for_serving(params: dict, cfg: ArchConfig,
             return PackedW(torch.stack([s.codes for s in stacked]),
                            torch.stack([s.meta for s in stacked]),
                            stacked[0].shape2d, p_node.dtype,
-                           _marker_geometry(site, s_node.axes))
+                           _marker_geometry(site, s_node.axes)[3:])
         if isinstance(s_node, dict):
             return {k: walk(p_node[k], v, parts + (k,)) for k, v in s_node.items()}
         return p_node

@@ -12,8 +12,17 @@ reference's ``lax.scan`` decode chunk is a per-token Python loop here
 :func:`serve_requests` is the continuous-batching scheduler: whole slots of
 a contiguous cache, or (``kv_pages > 0``) the paged HiF4 pool with
 copy-on-write prefix sharing, LRU eviction and youngest-first preemption.
-The guard, the journal and the fault injector of the reference are not yet
-ported, nor are serving artifacts.
+With ``ServeConfig.guard`` each request is its own fault domain (sentinels,
+audits, quarantine with a fallback retry, bounded-retry rejection,
+deadlines; :mod:`repro_torch.runtime.guard`); with ``journal_dir`` every
+request's lifecycle goes through a write-ahead journal with pool
+checkpoints, and ``resume=True`` recovers a crashed serve from it
+(:mod:`repro_torch.runtime.journal`). ``injector`` drives the
+deterministic faults of :mod:`repro_torch.runtime.faults`.
+
+:func:`save_serving_artifact` / :func:`load_serving_artifact` write and
+read the deployment artifact (the reference's on-disk format, verified on
+load).
 """
 from __future__ import annotations
 
@@ -32,15 +41,18 @@ from repro_torch.core.qlinear import PackedW, QuantConfig, _qdq_along, \
 from repro_torch.device import DeviceLike, resolve_device, sync
 from repro_torch.models import lm
 from repro_torch.models.common import ModelCtx
+from repro_torch.runtime import guard as guard_mod
+from repro_torch.runtime.guard import (
+    ArtifactLayoutError,
+    ArtifactNotFoundError,
+    GuardConfig,
+    PoolExhaustedError,
+)
 
 
 class KVFallbackWarning(UserWarning):
     """``kv_format=hif4`` was narrowed to bf16 for a family whose state has
     no packed layout."""
-
-
-class PoolExhaustedError(RuntimeError):
-    """The KV page pool cannot hold even one resident sequence."""
 
 
 @dataclasses.dataclass
@@ -58,6 +70,12 @@ class ServeConfig:
     #                                        many pool pages (hif4 KV only)
     kv_page_tokens: int = 64               # tokens per pool page
     prefix_sharing: bool = True            # share prompt-prefix pages
+    guard: Optional[GuardConfig] = None    # health sentinels + fault domains
+    #                                        (None = unguarded; failures raise)
+    journal_dir: Optional[str] = None      # write-ahead request journal +
+    #                                        pool checkpoints live here
+    checkpoint_every: int = 0              # pool checkpoint cadence in decode
+    #                                        chunks (paged scheduler; 0 = off)
 
 
 def resolve_kv_format(cfg: ArchConfig, quant: QuantConfig,
@@ -112,19 +130,24 @@ def packed_weight_bytes(params) -> tuple[int, int]:
 
 
 def prepare_params_for_serving(params: dict, cfg: ArchConfig, quant, *,
+                               kernel_layout: bool = True,
                                device: DeviceLike = None) -> dict:
     """One-time offline conversion of block weights into the serving artifact
     on ``device`` (``quant``: a QuantConfig, QuantPolicy or QuantPlan). Sites
     the plan marks packed become PackedW in the K-major kernel layout; other
     quantized sites get offline QDQ weights; everything else stays full
-    precision. Idempotent on a packed tree."""
+    precision. Idempotent on a packed tree. ``kernel_layout=False`` keeps
+    PackedW leaves in the artifact (output-major, on-disk) layout, what
+    :func:`save_serving_artifact` writes; serving re-lays it out K-major."""
     dev = resolve_device(device)
     params = _to_device(params, dev)
     plan = lm.quant_plan(cfg, quant)
     if not plan.enabled:
         return params
     if packed_weight_bytes(params)[1]:
-        return _to_kernel_layout(params)
+        # already packed: honor the layout request (there is no kernel ->
+        # artifact inverse, so the artifact layout starts from raw weights)
+        return _to_kernel_layout(params) if kernel_layout else params
     out = dict(params)
     if plan.packed_paths:
         out = lm.pack_params_for_serving(out, cfg, plan)
@@ -137,7 +160,7 @@ def prepare_params_for_serving(params: dict, cfg: ArchConfig, quant, *,
             and site.cfg.format() is not None):
         out["lm_head"] = _qdq_along(out["lm_head"], site.cfg.format(),
                                     site.contract_axes)
-    if plan.packed_paths:
+    if plan.packed_paths and kernel_layout:
         return _to_kernel_layout(out)
     return out
 
@@ -147,6 +170,74 @@ def serving_ctx(ctx: ModelCtx) -> ModelCtx:
     qcfg = dataclasses.replace(ctx.quant, offline_weights=True)
     plan = ctx.plan.with_offline_weights() if ctx.plan is not None else None
     return dataclasses.replace(ctx, quant=qcfg, plan=plan)
+
+
+def save_serving_artifact(directory: str, params: dict, cfg: ArchConfig,
+                          policy, *, device: DeviceLike = None) -> str:
+    """Write the deployment artifact in the reference's format: the
+    policy-converted weights (PackedW leaves in the on-disk artifact
+    layout, offline QDQ elsewhere), converted on ``device``, plus the
+    policy and an integrity block (per-PackedW-leaf sha256 over codes and
+    meta, :func:`repro_torch.runtime.guard.artifact_integrity`) in the
+    checkpoint's ``extra.json``. ``params`` are the RAW weights; ``policy``
+    a QuantPolicy, QuantPlan or QuantConfig. Returns the step directory."""
+    from repro_torch.checkpoint import save_checkpoint
+
+    if packed_weight_bytes(params)[1]:
+        raise ArtifactLayoutError(
+            f"save_serving_artifact({directory!r}) was handed an "
+            "already-packed tree. Expected RAW (unpacked) trained weights: "
+            "packed PackedW leaves may be in the K-major kernel layout, "
+            "which has no inverse back to the on-disk artifact layout. "
+            "To re-export, load the raw training weights and call "
+            "save_serving_artifact(directory, raw_params, cfg, policy) — "
+            "the policy conversion happens inside.")
+    plan = lm.quant_plan(cfg, policy)
+    artifact = prepare_params_for_serving(params, cfg, plan, kernel_layout=False,
+                                          device=device)
+    extra = {"family": cfg.family,
+             "quant_policy": plan.policy.to_json_dict(),
+             "integrity": guard_mod.artifact_integrity(artifact)}
+    return save_checkpoint(directory, 0, artifact, extra)
+
+
+def load_serving_artifact(directory: str, cfg: ArchConfig, *,
+                          device: DeviceLike = None):
+    """Restore (serving_params, policy) written by :func:`save_serving_artifact`
+    (by either package) onto ``device``. The policy is read first and its
+    plan rebuilds the packed/dense tree the arrays load into; the packed
+    leaves come back in the artifact layout (serving re-lays them out
+    K-major once). An artifact with an integrity block is verified on the
+    host before it moves: corruption raises
+    :class:`repro_torch.runtime.guard.ArtifactIntegrityError` naming the
+    leaf."""
+    import json
+    import os
+
+    from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.core.policy import QuantPolicy
+
+    dev = resolve_device(device)
+    step = latest_step(directory)
+    if step is None:
+        raise ArtifactNotFoundError(
+            f"no serving artifact under {directory!r}: expected a "
+            "step_<NNNNNNNN>/ directory holding manifest.json, the packed "
+            "arrays, and extra.json with the serialized quant_policy. "
+            "Re-export with repro_torch.runtime.serve_loop."
+            "save_serving_artifact(directory, raw_params, cfg, policy).")
+    with open(os.path.join(directory, f"step_{step:08d}", "extra.json")) as f:
+        extra = json.load(f)
+    policy = QuantPolicy.from_json_dict(extra["quant_policy"])
+    plan = lm.quant_plan(cfg, policy)
+    target = lm.realize_packed(
+        lm.packed_overlay(lm.abstract_params(cfg), plan),
+        lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"))
+    params, _ = load_checkpoint(directory, step, target, device="cpu")
+    integrity = extra.get("integrity")
+    if integrity is not None:
+        guard_mod.verify_artifact_integrity(params, integrity, directory)
+    return _to_device(params, dev), policy
 
 
 def kv_cache_bytes(cache: dict) -> tuple[int, int]:
@@ -185,6 +276,22 @@ def _prefill(cfg: ArchConfig, serving_params: dict, batch: dict,
     return logits, cache
 
 
+def _decode_steps(params, token, cache, done, n_tokens: int, cfg: ArchConfig,
+                  sctx: ModelCtx, eos_id: Optional[int], bad=None):
+    out = []
+    for _ in range(n_tokens):
+        logits, cache = lm.decode_step(params, token, cache, cfg, sctx)
+        if bad is not None:
+            bad = bad | guard_mod.bad_logits(logits)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if eos_id is not None:
+            nxt = torch.where(done, eos_id, nxt)
+            done = done | (nxt == eos_id)
+        token = nxt
+        out.append(nxt)
+    return torch.stack(out, dim=1), token, cache, done, bad
+
+
 def _decode_chunk(params, token, cache, done, n_tokens: int, cfg: ArchConfig,
                   sctx: ModelCtx, eos_id: Optional[int]):
     """Greedy-decode ``n_tokens`` steps (the reference's ``_decode_scan``).
@@ -193,16 +300,33 @@ def _decode_chunk(params, token, cache, done, n_tokens: int, cfg: ArchConfig,
     finished requests (with an eos they keep emitting eos; their cache
     writes are inert, their outputs discarded). Returns (tokens (B,
     n_tokens), token, cache, done); nothing waits for the device."""
-    out = []
-    for _ in range(n_tokens):
-        logits, cache = lm.decode_step(params, token, cache, cfg, sctx)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        if eos_id is not None:
-            nxt = torch.where(done, eos_id, nxt)
-            done = done | (nxt == eos_id)
-        token = nxt
-        out.append(nxt)
-    return torch.stack(out, dim=1), token, cache, done
+    return _decode_steps(params, token, cache, done, n_tokens, cfg, sctx,
+                         eos_id)[:4]
+
+
+def _decode_chunk_guarded(params, token, cache, done, bad, n_tokens: int,
+                          cfg: ArchConfig, sctx: ModelCtx,
+                          eos_id: Optional[int]):
+    """:func:`_decode_chunk` with the health sentinels (the reference's
+    ``_decode_scan_guarded``).
+
+    ``bad`` (B,) bool OR-accumulates :func:`guard.bad_logits` every step;
+    after the chunk the 0xFF E6M2 counts of the packed KV are reduced per
+    slot (contiguous cache) or per pool page (paged pool), zeros for bf16
+    KV. Both come back as ONE int32 ``flags`` vector on the device
+    (``flags[:B]`` the NaN flags, ``flags[B:]`` the counts), which the
+    scheduler pulls with the chunk's tokens in one transfer. The tokens
+    are computed by the same ops in the same order as the unguarded chunk,
+    so they are bitwise its tokens. Returns (tokens, token, cache, done,
+    flags); nothing waits for the device."""
+    toks, token, cache, done, bad = _decode_steps(
+        params, token, cache, done, n_tokens, cfg, sctx, eos_id, bad)
+    kv = cache["kv"]
+    if kvcache.is_packed_kv(kv["k"]):
+        meta_nan = guard_mod.slot_meta_nan_counts(kv)
+    else:
+        meta_nan = torch.zeros(token.shape, dtype=torch.int32, device=token.device)
+    return toks, token, cache, done, torch.cat([bad.to(torch.int32), meta_nan])
 
 
 def serve(cfg: ArchConfig, params: dict, batch: dict, ctx: ModelCtx,
@@ -283,6 +407,140 @@ def _finalize_result(toks: list, budget: int, eos_id: Optional[int]
     return torch.tensor(toks, dtype=torch.int32)
 
 
+def _failed_result(budget: int, eos_id: Optional[int]) -> torch.Tensor:
+    """The (budget,) placeholder a rejected/quarantined request returns: eos
+    fill when an eos is configured, else -1 (never a valid token)."""
+    return torch.full((budget,), eos_id if eos_id is not None else -1,
+                      dtype=torch.int32)
+
+
+def _finalize_partial(toks: list, budget: int, eos_id: Optional[int]
+                      ) -> torch.Tensor:
+    """A timed-out request's partial tokens, padded to (budget,)."""
+    fill = eos_id if eos_id is not None else -1
+    toks = list(toks[:budget])
+    return torch.tensor(toks + [fill] * (budget - len(toks)), dtype=torch.int32)
+
+
+def _retry_fallback(cfg: ArchConfig, params: dict, prompt: list, ctx: ModelCtx,
+                    serve_cfg: ServeConfig, device: torch.device):
+    """Quarantine retry: re-serve ONE request solo on the degradation path,
+    qdq impl (dequantize-then-dot on the packed leaves) + bf16 KV, with the
+    NaN sentinel carried through prefill and decode.
+
+    Returns ((budget,) int32 tokens, healthy bool). No fused kernel and no
+    packed cache runs here, so a fault rooted in packed payloads or kernel
+    dispatch cannot recur; a still-unhealthy retry means the fault is
+    upstream and the request is quarantined for good. ``params`` are the
+    serving params (packed, K-major): preparing them again is a no-op."""
+    fb_quant = dataclasses.replace(ctx.quant, impl="qdq", kv=kvcache.KV_BF16)
+    fb_ctx = dataclasses.replace(ctx, quant=fb_quant, plan=None)
+    fb_serve = dataclasses.replace(serve_cfg, kv_format="bf16", kv_pages=0,
+                                   guard=None)
+    sctx = serving_ctx(fb_ctx)
+    params = prepare_params_for_serving(params, cfg, fb_quant, device=device)
+    logits, cache = build_decode_cache(
+        cfg, params, {"tokens": _prompt_tensor(prompt, device)}, sctx, fb_serve)
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+    bad = guard_mod.bad_logits(logits)
+    done = torch.zeros(token.shape, dtype=torch.bool, device=device)
+    if fb_serve.eos_id is not None:
+        done = done | (token == fb_serve.eos_id)
+    out = [token[:, None]]
+    budget = fb_serve.max_new_tokens - 1
+    if budget > 0:
+        toks, token, cache, done, flags = _decode_chunk_guarded(
+            params, token, cache, done, bad, budget, cfg, sctx, fb_serve.eos_id)
+        out.append(toks)
+        bad = flags[:1]                    # B=1; the meta part is zeros (bf16)
+    pulled = torch.cat([torch.cat(out, dim=1)[0], bad.to(torch.int32)]).tolist()
+    return (_finalize_result(pulled[:-1], fb_serve.max_new_tokens,
+                             fb_serve.eos_id), not pulled[-1])
+
+
+def _open_journal(serve_cfg: ServeConfig, requests, *, resume: bool, kind: str,
+                  chunk: int, **geometry):
+    """(journal, recovery plan) for a serve call; (None, None) without a
+    ``journal_dir``. On resume the OLD journal is replayed into the plan
+    first; the new journal then stages at ``.tmp``, records its start event
+    plus a ``done`` event per already-completed request, and only then
+    replaces the old file."""
+    if serve_cfg.journal_dir is None:
+        if resume:
+            raise guard_mod.RecoveryError(
+                "resume=True needs serve_cfg.journal_dir pointing at the "
+                "crashed serve's journal")
+        return None, None
+    from repro_torch.runtime import journal as journal_mod
+
+    plan = None
+    if resume:
+        plan = journal_mod.recover(serve_cfg.journal_dir, requests,
+                                   budget=serve_cfg.max_new_tokens,
+                                   eos=serve_cfg.eos_id)
+    journal = journal_mod.RequestJournal(serve_cfg.journal_dir)
+    journal.append(
+        "start", v=journal_mod.JOURNAL_VERSION, kind=kind,
+        n_requests=len(requests), budget=serve_cfg.max_new_tokens,
+        eos=serve_cfg.eos_id, chunk=chunk,
+        prompts=[journal_mod.prompt_sha256(r) for r in requests], **geometry)
+    if plan is not None:
+        for rid in sorted(plan.completed):
+            ent = plan.completed[rid]
+            journal.append("done", rid=rid, status=ent["status"],
+                           detail=ent["detail"], retries=ent["retries"],
+                           toks=ent["toks"])
+    journal.activate()
+    return journal, plan
+
+
+def _inject_completed(plan, queue, results, reports):
+    """Feed a recovery plan's journaled terminal results straight into the
+    result/report tables: completed work is never re-served."""
+    for rid in sorted(plan.completed):
+        ent = plan.completed[rid]
+        queue.remove(rid)
+        results[rid] = torch.tensor(ent["toks"], dtype=torch.int32)
+        reports[rid].update(status=ent["status"], detail=ent["detail"])
+        reports[rid]["retries"] = ent["retries"]
+
+
+def _verify_recovery(plan, results, reports) -> int:
+    """Every re-served request that finished cleanly must reproduce its
+    journaled token prefix bitwise (a mismatch means recovery restored the
+    wrong bytes: :class:`RecoveryError`). Returns the number verified."""
+    verified = 0
+    for rid in sorted(plan.emitted):
+        if rid in plan.completed or reports[rid]["status"] != "ok":
+            continue
+        exp = plan.expected_prefix(rid)
+        if not exp:
+            continue
+        got = results[rid].tolist()[: len(exp)]
+        if got != exp:
+            raise guard_mod.RecoveryError(
+                f"request {rid}: re-served output {got} contradicts its "
+                f"journaled token prefix {exp} — recovered state failed "
+                "replay verification")
+        verified += 1
+    return verified
+
+
+def _report_counts(reports: dict) -> dict:
+    counts = {status: 0 for status in guard_mod.STATUS_NAMES}
+    for rep in reports.values():
+        counts[rep["status"]] += 1
+    return {"quarantined": counts["quarantined"], "retried": counts["retried"],
+            "rejected": counts["rejected"], "timeouts": counts["timeout"]}
+
+
+def _split_pull(pulled: list, batch: int, chunk: int) -> tuple[list, list]:
+    """One host transfer of ``cat([tokens (B, chunk) flattened, extra])`` ->
+    (per-slot token lists, the extra values)."""
+    n = batch * chunk
+    return [pulled[b * chunk:(b + 1) * chunk] for b in range(batch)], pulled[n:]
+
+
 def serve_requests(cfg: ArchConfig, params: dict, requests: Sequence,
                    ctx: ModelCtx, serve_cfg: ServeConfig = ServeConfig(), *,
                    slots: int = 4, stats: Optional[dict] = None,
@@ -302,14 +560,21 @@ def serve_requests(cfg: ArchConfig, params: dict, requests: Sequence,
     With ``serve_cfg.kv_pages > 0`` (hif4 KV only) the whole-slot cache is
     replaced by the paged pool scheduler (:func:`_serve_requests_paged`).
 
+    With ``serve_cfg.guard`` each request is its own fault domain: the
+    decode chunk carries the NaN/Inf sentinel, packed KV is audited per
+    chunk, and a faulty slot is quarantined (evicted, retried once on the
+    qdq/bf16 fallback path) while the rest of the batch continues
+    bitwise-unaffected; per-request outcomes land in ``stats["reports"]``.
+    With ``serve_cfg.journal_dir`` every lifecycle event goes through the
+    write-ahead journal, and ``resume=True`` rebuilds a crashed serve from
+    it (finished results injected, checkpointed residents restored, the
+    rest re-prefilled), verifying the re-served tokens against the
+    journaled prefixes (``stats["recovery"]``). ``injector`` is a
+    :class:`repro_torch.runtime.faults.FaultInjector`.
+
     Returns a list of (max_new_tokens,) int32 CPU tensors in submission
-    order. ``stats`` (a dict) receives the scheduler's counters. The
-    reference's guard and journal are not yet ported (``ServeConfig`` has
-    no such fields); its ``injector`` and ``resume`` arguments raise.
+    order. ``stats`` (a dict) receives the scheduler's counters.
     """
-    if injector is not None or resume:
-        raise NotImplementedError("the fault injector and journal resume are "
-                                  "not yet ported to repro_torch")
     if cfg.family not in ("dense", "vlm", "moe"):
         raise ValueError(f"continuous batching supports KV-cache families, "
                          f"got {cfg.family!r}")
@@ -325,13 +590,18 @@ def serve_requests(cfg: ArchConfig, params: dict, requests: Sequence,
             raise ValueError("the paged KV pool stores packed HiF4 pages; bf16 "
                              "serving must use the whole-slot scheduler")
         return _serve_requests_paged(cfg, params, prompts, sctx, serve_cfg,
-                                     slots=slots, device=dev, stats=stats)
+                                     ctx=ctx, slots=slots, device=dev,
+                                     stats=stats, injector=injector,
+                                     resume=resume)
 
+    guard = serve_cfg.guard
     budget = serve_cfg.max_new_tokens
     eos = serve_cfg.eos_id
     cap = serve_cfg.cache_capacity or max(len(p) for p in prompts) + budget
     B = min(slots, len(prompts))
     chunk = serve_cfg.decode_chunk or max(1, budget // 4)
+    journal, plan = _open_journal(serve_cfg, prompts, resume=resume,
+                                  kind="slots", chunk=chunk)
 
     cache = lm.init_cache(cfg, B, cap, kv_fmt, device=dev)
     token = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -339,8 +609,23 @@ def serve_requests(cfg: ArchConfig, params: dict, requests: Sequence,
     queue = list(range(len(prompts)))
     slot_req: list = [None] * B
     slot_toks: list[list] = [[] for _ in range(B)]
+    admit_time = [0.0] * B
     results: list = [None] * len(prompts)
-    max_concurrent = 0
+    reports = {rid: guard_mod.new_report() for rid in range(len(prompts))}
+    if plan is not None:
+        _inject_completed(plan, queue, results, reports)
+    max_concurrent = chunk_idx = 0
+    guarded = guard is not None and guard.nan_sentinel
+    meta_audit = guard is not None and guard.meta_audit and kv_fmt == "hif4"
+    if guarded:
+        zeros_bad = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    def jlog_done(rid):
+        if journal is not None:
+            rep = reports[rid]
+            journal.append("done", rid=rid, status=rep["status"],
+                           detail=rep["detail"], retries=rep["retries"],
+                           toks=results[rid].tolist())
 
     def admit(b: int):
         nonlocal cache, token
@@ -352,28 +637,112 @@ def serve_requests(cfg: ArchConfig, params: dict, requests: Sequence,
         cache, token = _insert_slot(cache, slot_cache, token, first, b)
         slot_req[b] = rid
         slot_toks[b] = [first]
+        admit_time[b] = time.monotonic()
         done[b] = eos is not None and first == eos
+        if journal is not None:
+            journal.append("admitted", rid=rid, src="prefill", toks=slot_toks[b])
+
+    def release(b: int):
+        slot_req[b] = None
+        slot_toks[b] = []
+        done[b] = True
+
+    def quarantine(b: int, reason: str):
+        """Evict the poisoned slot only; its neighbours' state is untouched
+        (batch rows never mix). Its cache region needs no scrub: admission
+        overwrites the slot's whole capacity."""
+        rid = slot_req[b]
+        release(b)
+        if guard.retry_fallback:
+            res, healthy = _retry_fallback(cfg, params, prompts[rid], ctx,
+                                           serve_cfg, dev)
+            reports[rid]["retries"] += 1
+            if healthy:
+                results[rid] = res
+                reports[rid].update(status="retried", detail=f"{reason}; "
+                                    "re-served solo on the qdq/bf16 fallback path")
+                jlog_done(rid)
+                return
+        results[rid] = _failed_result(budget, eos)
+        reports[rid].update(status="quarantined", detail=reason)
+        jlog_done(rid)
 
     while queue or any(r is not None for r in slot_req):
         for b in range(B):
             if slot_req[b] is None and queue:
                 admit(b)
+                if injector is not None:
+                    injector.crash_point("after_admit", chunk_idx=chunk_idx,
+                                         rid=slot_req[b], journal=journal)
         max_concurrent = max(max_concurrent, sum(r is not None for r in slot_req))
+        if injector is not None:
+            cache["kv"] = injector.poison_cache(cache["kv"], slot_req, chunk_idx)
         active = torch.tensor([r is not None for r in slot_req], device=dev)
-        toks, token, cache, done = _decode_chunk(params, token, cache,
-                                                 done | ~active, chunk, cfg,
-                                                 sctx, eos)
-        host_toks = toks.tolist()
+        badv = metav = None
+        if guarded:
+            toks, token, cache, done, flags = _decode_chunk_guarded(
+                params, token, cache, done | ~active, zeros_bad, chunk, cfg,
+                sctx, eos)
+            # tokens and flags in ONE transfer
+            host_toks, flagsv = _split_pull(
+                torch.cat([toks.reshape(-1), flags]).tolist(), B, chunk)
+            badv = flagsv[:B]
+            if meta_audit:
+                metav = flagsv[B:]
+        else:
+            toks, token, cache, done = _decode_chunk(
+                params, token, cache, done | ~active, chunk, cfg, sctx, eos)
+            extra = [guard_mod.slot_meta_nan_counts(cache["kv"])] if meta_audit else []
+            host_toks, metav = _split_pull(
+                torch.cat([toks.reshape(-1)] + extra).tolist(), B, chunk)
+            metav = metav if meta_audit else None
+        chunk_idx += 1
+        if journal is not None:
+            journal.append("chunk", idx=chunk_idx - 1, emitted={
+                slot_req[b]: host_toks[b] for b in range(B)
+                if slot_req[b] is not None})
         for b in range(B):
             if slot_req[b] is None:
                 continue
+            reason = None
+            if badv is not None and badv[b]:
+                reason = "nan_logits: non-finite logits in the decode scan"
+            if metav is not None and metav[b]:
+                reason = (f"meta_nan: {metav[b]} E6M2 NaN sentinel(s) in the "
+                          "slot's packed KV")
+            if reason is not None:
+                quarantine(b, reason)
+                continue
             slot_toks[b].extend(host_toks[b])
+            if (guard is not None and guard.deadline_s is not None
+                    and time.monotonic() - admit_time[b] > guard.deadline_s):
+                rid = slot_req[b]
+                results[rid] = _finalize_partial(slot_toks[b], budget, eos)
+                reports[rid].update(status="timeout",
+                                    detail=f"deadline: exceeded {guard.deadline_s}s")
+                release(b)
+                jlog_done(rid)
+                continue
             if len(slot_toks[b]) >= budget or (eos is not None and eos in slot_toks[b]):
-                results[slot_req[b]] = _finalize_result(slot_toks[b], budget, eos)
+                rid = slot_req[b]
+                results[rid] = _finalize_result(slot_toks[b], budget, eos)
                 slot_req[b] = None
+                jlog_done(rid)
+        if journal is not None:
+            journal.commit()
+        if injector is not None:
+            injector.crash_point("mid_decode", chunk_idx=chunk_idx - 1,
+                                 journal=journal)
+    if journal is not None:
+        journal.close()
+    if plan is not None:
+        verified = _verify_recovery(plan, results, reports)
+        if stats is not None:
+            stats["recovery"] = dict(plan.report(), verified=verified)
     if stats is not None:
         stats.update(scheduler="slots", max_concurrent=max_concurrent,
-                     preemptions=0, shared_page_hits=0, evictions=0)
+                     preemptions=0, shared_page_hits=0, evictions=0,
+                     reports=reports, **_report_counts(reports))
     return results
 
 
@@ -415,6 +784,15 @@ def _pool_copy(pool: dict, src: int, dst: int) -> dict:
     return pool
 
 
+def _pool_scrub(pool: dict, ids) -> dict:
+    """Zero the freed pages of a quarantined slot, in place, so stale
+    corruption cannot leak into the page's next owner."""
+    ids = torch.as_tensor(ids, dtype=torch.long)
+    kvcache.scrub_pages(pool["k"], ids)
+    kvcache.scrub_pages(pool["v"], ids)
+    return pool
+
+
 def _page_prefix_equal(pool: dict, pid: int, page_k: dict, page_v: dict,
                        count: int) -> bool:
     """True iff pool page ``pid`` matches the candidate page blocks (L, F, P)
@@ -431,8 +809,9 @@ def _page_prefix_equal(pool: dict, pid: int, page_k: dict, page_v: dict,
 
 def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
                           sctx: ModelCtx, serve_cfg: ServeConfig, *,
-                          slots: int, device: torch.device,
-                          stats: Optional[dict] = None) -> list:
+                          ctx: ModelCtx, slots: int, device: torch.device,
+                          stats: Optional[dict] = None, injector=None,
+                          resume: bool = False) -> list:
     """Page-pool continuous batching (the :func:`serve_requests` backend for
     ``serve_cfg.kv_pages > 0``).
 
@@ -456,6 +835,18 @@ def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
     partition the token axis like the contiguous kernel's KV tiles, appends
     land in pages their slot owns alone, and fully masked tiles are exact
     no-ops.
+
+    **Fault domains.** Preemption snapshots always carry a crc32
+    fingerprint, verified before re-admission scatters them back; a
+    corrupt snapshot is dropped and the request re-queued from its prompt
+    (status ``retried``, the result still exact). With ``serve_cfg.guard``
+    the chunk carries the NaN sentinel, every chunk audits live pages (0xFF
+    meta counts; per-page checksums against the values recorded after the
+    previous chunk, skipping pages the scheduler wrote in between), faulty
+    slots are quarantined with their freed pages scrubbed, and pool
+    starvation becomes a bounded-retry ``rejected`` status. Tokens, flags
+    and checksums come to the host in ONE transfer per chunk. With a
+    journal, ``checkpoint_every`` chunks also write the residents' pages.
     """
     P = serve_cfg.kv_page_tokens
     budget = serve_cfg.max_new_tokens
@@ -477,7 +868,16 @@ def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
     cache = lm.init_paged_cache(cfg, B, serve_cfg.kv_pages, P, maxp, device=dev)
     token = torch.zeros((B,), dtype=torch.int32, device=dev)
     done = torch.ones((B,), dtype=torch.bool, device=dev)
+    guard = serve_cfg.guard
     chunk = serve_cfg.decode_chunk or max(1, budget // 4)
+    guarded = guard is not None and guard.nan_sentinel
+    if guarded:
+        zeros_bad = torch.zeros((B,), dtype=torch.bool, device=dev)
+    if injector is not None:
+        injector.steal_pages(pool)
+    journal, plan = _open_journal(serve_cfg, prompts, resume=resume, kind="paged",
+                                  chunk=chunk, kv_pages=serve_cfg.kv_pages,
+                                  page_tokens=P)
 
     queue = list(range(n_req))
     suspended: dict = {}               # rid -> preemption byte snapshot
@@ -487,8 +887,32 @@ def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
     #                                                    resident, in order
     slot_pages: list[list] = [[] for _ in range(B)]    # pool ids, logical
     admit_clock = [0] * B
+    admit_time = [0.0] * B
     results: list = [None] * n_req
-    clock = preempt_count = max_concurrent = peak_live = 0
+    reports = {rid: guard_mod.new_report() for rid in range(n_req)}
+    if plan is not None:
+        _inject_completed(plan, queue, results, reports)
+        for rid, snap in plan.suspended.items():
+            # checkpointed residents re-enter through the snapshot path;
+            # written follows the invariant written == prompt + toks[:-1]
+            suspended[rid] = dict(snap, toks=list(snap["toks"]),
+                                  written=prompts[rid] + list(snap["toks"])[:-1])
+    admission_attempts: dict = {}      # rid -> failed empty-pool admissions
+    clock = preempt_count = max_concurrent = peak_live = snapshot_drops = 0
+    chunk_idx = 0
+    # checksum audit state: ``recorded`` maps page id -> its checksum after
+    # the last chunk; ``dirty`` holds pages the scheduler itself wrote since
+    # then (admission scatters, COW copies, horizon allocs, chunk appends),
+    # which are re-recorded, not compared
+    recorded: dict = {}
+    dirty: set = set()
+
+    def jlog_done(rid):
+        if journal is not None:
+            rep = reports[rid]
+            journal.append("done", rid=rid, status=rep["status"],
+                           detail=rep["detail"], retries=rep["retries"],
+                           toks=results[rid].tolist())
 
     def set_table_row(b, pids):
         row = torch.zeros((maxp,), dtype=torch.int32)
@@ -511,27 +935,35 @@ def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
             elif seg:
                 pool.register_partial(pid, tuple(written[: j * P]), seg)
 
-    def release_slot(b):
-        for pid in slot_pages[b]:
-            pool.release(pid)                  # hashed full pages park LRU
+    def clear_slot(b):
         slot_pages[b] = []
         slot_req[b] = None
         slot_toks[b] = []
         slot_written[b] = []
         set_table_row(b, [])                   # its writes -> scratch page 0
 
+    def release_slot(b):
+        for pid in slot_pages[b]:
+            pool.release(pid)                  # hashed full pages park LRU
+        clear_slot(b)
+
     def preempt(b):
         nonlocal preempt_count
         rid = slot_req[b]
-        suspended[rid] = {
-            "pages": _pool_gather(cache["kv"], slot_pages[b]),  # BYTES
-            "token": int(token[b]),
-            "toks": slot_toks[b],
-            "written": slot_written[b],
-        }
+        snap = _pool_gather(cache["kv"], slot_pages[b])    # BYTES, on the host
+        # fingerprint BEFORE the injector hook: the stamp models the bytes as
+        # they left the device; host-side corruption after that is what
+        # re-admission must catch
+        crc = guard_mod.snapshot_fingerprint(snap)
+        if injector is not None:
+            snap = injector.poison_snapshot(snap, rid)
+        suspended[rid] = {"pages": snap, "crc32": crc, "token": int(token[b]),
+                          "toks": slot_toks[b], "written": slot_written[b]}
         release_slot(b)
         queue.insert(0, rid)
         preempt_count += 1
+        if journal is not None:
+            journal.append("preempted", rid=rid)
 
     def alloc_page(rid, requester):
         """Allocate, preempting youngest-first when the pool is dry. Returns
@@ -551,8 +983,20 @@ def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
                 return None
 
     def try_admit(b, rid):
-        nonlocal clock
+        nonlocal clock, snapshot_drops
         snap = suspended.get(rid)
+        if snap is not None and not guard_mod.verify_snapshot(snap):
+            # a truncated/flipped snapshot never reaches the pool: drop it and
+            # re-serve from the prompt (greedy decode is deterministic, so the
+            # result is still exact)
+            del suspended[rid]
+            snapshot_drops += 1
+            reports[rid]["retries"] += 1
+            reports[rid].update(
+                status="retried",
+                detail="snapshot_integrity: preemption snapshot failed its "
+                       "fingerprint at re-admission; re-queued from the prompt")
+            snap = None
         if snap is not None:
             n = snap["pages"]["k"]["meta"].shape[1]
             if pool.available() < n:
@@ -560,6 +1004,7 @@ def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
             pids = [pool.alloc(owner=rid) for _ in range(n)]
             _pool_scatter(cache["kv"], snap["pages"]["k"], snap["pages"]["v"],
                           list(range(n)), pids)
+            dirty.update(pids)
             del suspended[rid]
             token[b] = snap["token"]
             cache["pos"][b] = len(snap["written"])
@@ -609,6 +1054,7 @@ def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
                     pids.append(pid)
             if own_dst:
                 _pool_scatter(cache["kv"], kp, vp, own_src, own_dst)
+                dirty.update(own_dst)
             first = int(torch.argmax(logits, dim=-1)[0])
             token[b] = first
             cache["pos"][b] = len(toks)
@@ -620,7 +1066,14 @@ def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
         set_table_row(b, pids)
         clock += 1
         admit_clock[b] = clock
+        admit_time[b] = time.monotonic()
         refresh_metadata(b)
+        if journal is not None:
+            # an admitted record RESETS the request's journaled emission to
+            # its cumulative tokens (fresh prefill, snapshot, or checkpoint)
+            journal.append("admitted", rid=rid,
+                           src="snapshot" if snap is not None else "prefill",
+                           toks=[int(t) for t in slot_toks[b]])
         return True
 
     def provision(b):
@@ -638,6 +1091,7 @@ def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
                     if new is None:
                         return False
                     _pool_copy(cache["kv"], pid, new)
+                    dirty.add(new)
                     pool.release(pid)
                     slot_pages[b][cur] = new
                     cache["pages"][b, cur] = new
@@ -648,48 +1102,229 @@ def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
             pid = alloc_page(rid, b)
             if pid is None:
                 return False
+            dirty.add(pid)
             slot_pages[b].append(pid)
             cache["pages"][b, j] = pid
         return True
+
+    def quarantine(b, reason):
+        """Evict the poisoned slot only: drop its pool refs, scrub the pages
+        that actually freed (shared pages survive for their other holders,
+        whose own audits catch them if THEY are the corrupted bytes), and
+        retry the request once on the qdq/bf16 fallback path. Neighbouring
+        slots continue bitwise-unaffected."""
+        rid = slot_req[b]
+        freed = []
+        for pid in slot_pages[b]:
+            pool.release(pid, keep_cached=False)
+            if pid not in pool.ref:
+                freed.append(pid)
+                recorded.pop(pid, None)
+        if freed:
+            _pool_scrub(cache["kv"], freed)
+            dirty.update(freed)
+        clear_slot(b)
+        done[b] = True
+        if guard.retry_fallback:
+            res, healthy = _retry_fallback(cfg, params, prompts[rid], ctx,
+                                           serve_cfg, dev)
+            reports[rid]["retries"] += 1
+            if healthy:
+                results[rid] = res
+                reports[rid].update(status="retried", detail=f"{reason}; "
+                                    "re-served solo on the qdq/bf16 fallback path")
+                jlog_done(rid)
+                return
+        results[rid] = _failed_result(budget, eos)
+        reports[rid].update(status="quarantined", detail=reason)
+        jlog_done(rid)
+
+    def reject(rid, detail):
+        queue.remove(rid)
+        suspended.pop(rid, None)
+        results[rid] = _failed_result(budget, eos)
+        reports[rid].update(status="rejected", detail=detail)
+        jlog_done(rid)
+
+    def checkpoint():
+        from repro_torch.runtime import journal as journal_mod
+
+        residents = {}
+        for b in range(B):
+            rid = slot_req[b]
+            if rid is not None:
+                residents[rid] = {"pages": _pool_gather(cache["kv"], slot_pages[b]),
+                                  "token": int(token[b]),
+                                  "toks": [int(t) for t in slot_toks[b]]}
+        fname, digest = journal_mod.save_pool_checkpoint(
+            serve_cfg.journal_dir, chunk_idx, residents)
+        if injector is not None:
+            # the .npz is on disk but its journal record is not:
+            # crash_during_checkpoint leaves an orphan recovery must ignore
+            injector.crash_point("during_checkpoint", chunk_idx=chunk_idx - 1,
+                                 journal=journal)
+        journal.append("checkpoint", chunk=chunk_idx, file=fname, sha256=digest,
+                       residents={rid: {"token": ent["token"], "toks": ent["toks"]}
+                                  for rid, ent in residents.items()})
 
     while queue or any(r is not None for r in slot_req):
         # admission: FIFO, page-fit driven; stop at the first request whose
         # prompt pages do not fit (no skip-ahead)
         while queue:
             free_b = next((b for b in range(B) if slot_req[b] is None), None)
-            if free_b is None or not try_admit(free_b, queue[0]):
+            if free_b is None:
+                break
+            head = queue[0]
+            if not try_admit(free_b, head):
                 break
             queue.pop(0)
+            if injector is not None:
+                injector.crash_point("after_admit", chunk_idx=chunk_idx, rid=head,
+                                     journal=journal)
         if not any(r is not None for r in slot_req):
-            raise PoolExhaustedError(
-                f"request {queue[0]} cannot be admitted into an empty pool "
-                f"({pool.usable_pages} usable pages, {pool.available()} "
-                "allocatable)")
+            # nothing resident AND the queue head still does not fit: fatal
+            # without a guard, else bounded retry + backoff, then rejected
+            rid = queue[0]
+            msg = (f"request {rid!r} cannot be admitted into an empty pool "
+                   f"({pool.usable_pages} usable pages, {pool.available()} "
+                   "allocatable)")
+            if guard is None:
+                raise PoolExhaustedError(msg)
+            attempts = admission_attempts.get(rid, 0) + 1
+            admission_attempts[rid] = attempts
+            if attempts <= guard.max_admission_retries:
+                reports[rid]["retries"] += 1
+                if guard.admission_backoff_s:
+                    time.sleep(guard.admission_backoff_s * 2 ** (attempts - 1))
+                continue
+            reject(rid, f"pool_exhausted: {msg} after {attempts - 1} retries")
+            continue
         for b in range(B):
             if slot_req[b] is not None:
                 provision(b)
         # counted AFTER provisioning: sequences really decoding this chunk
         max_concurrent = max(max_concurrent, sum(r is not None for r in slot_req))
         peak_live = max(peak_live, pool.live_pages())
+        if injector is not None:
+            cache["kv"] = injector.poison_pool(cache["kv"], pool, slot_req,
+                                               slot_pages, chunk_idx)
         active = torch.tensor([r is not None for r in slot_req], device=dev)
-        toks, token, cache, done = _decode_chunk(params, token, cache,
-                                                 done | ~active, chunk, cfg,
-                                                 sctx, eos)
-        host_toks = toks.tolist()
+        extra = []
+        if guarded:
+            toks, token, cache, done, flags = _decode_chunk_guarded(
+                params, token, cache, done | ~active, zeros_bad, chunk, cfg,
+                sctx, eos)
+            extra.append(flags.to(torch.int64))       # (B,) NaN + (NP,) 0xFF
+        else:
+            toks, token, cache, done = _decode_chunk(
+                params, token, cache, done | ~active, chunk, cfg, sctx, eos)
+            if guard is not None and guard.meta_audit:
+                extra.append(guard_mod.slot_meta_nan_counts(cache["kv"]).to(
+                    torch.int64))
+        if guard is not None and guard.page_checksums:
+            extra.append(guard_mod.pool_page_sums(cache["kv"]))
+        # tokens, flags and page checksums come to the host in ONE transfer
+        host_toks, pulled = _split_pull(
+            torch.cat([toks.reshape(-1).to(torch.int64)] + extra).tolist()
+            if extra else toks.reshape(-1).tolist(), B, chunk)
+        n_pool = serve_cfg.kv_pages
+        badv = pulled[:B] if guarded else None
+        pagemeta = sums = None
+        if guarded:
+            pagemeta = pulled[B:B + n_pool]
+        elif guard is not None and guard.meta_audit:
+            pagemeta = pulled[:n_pool]
+        if guard is not None and guard.page_checksums:
+            sums = pulled[-n_pool:]
+        chunk_idx += 1
+        # 1) account this chunk's KV writes (and mark their pages dirty)
+        chunk_emitted = {}
         for b in range(B):
             if slot_req[b] is None:
                 continue
             new = host_toks[b]
+            chunk_emitted[slot_req[b]] = new
             # this chunk wrote KV for the pending token and every emission
             # but the newest (still pending)
+            n0 = len(slot_written[b])
             slot_written[b].extend([slot_toks[b][-1]] + new[:-1])
             slot_toks[b].extend(new)
+            n1 = len(slot_written[b])
+            for j in range(n0 // P, (n1 - 1) // P + 1):
+                # over-emission past the table clamps into the last entry
+                dirty.add(slot_pages[b][min(j, len(slot_pages[b]) - 1)])
+        if journal is not None:
+            journal.append("chunk", idx=chunk_idx - 1, emitted=chunk_emitted)
+        # 2) audit live pages BEFORE retiring anything, so a final-chunk
+        #    fault cannot slip out with the request
+        faulty = {}
+        if guard is not None:
+            for b in range(B):
+                if slot_req[b] is None:
+                    continue
+                for pid in slot_pages[b]:
+                    if guard.meta_audit and pagemeta is not None and pagemeta[pid]:
+                        faulty[b] = (f"meta_nan: page {pid} carries "
+                                     f"{pagemeta[pid]} E6M2 NaN sentinel(s)")
+                        break
+                    if (sums is not None and pid in recorded and pid not in dirty
+                            and sums[pid] != recorded[pid]):
+                        faulty[b] = (f"page_checksum: settled page {pid} "
+                                     "changed outside the scheduler")
+                        break
+        for b in range(B):
+            if (slot_req[b] is not None and b not in faulty and badv is not None
+                    and badv[b]):
+                faulty[b] = "nan_logits: non-finite logits in the decode scan"
+        for b, reason in faulty.items():
+            quarantine(b, reason)
+        # 3) re-record checksums for the pages still live, then settle
+        if sums is not None:
+            for b in range(B):
+                if slot_req[b] is not None:
+                    for pid in slot_pages[b]:
+                        recorded[pid] = sums[pid]
+        dirty.clear()
+        # 4) sharing metadata, deadlines, retirement
+        for b in range(B):
+            if slot_req[b] is None:
+                continue
             refresh_metadata(b)
-            if len(slot_toks[b]) >= budget or (eos is not None and eos in slot_toks[b]):
-                results[slot_req[b]] = _finalize_result(slot_toks[b], budget, eos)
+            rid = slot_req[b]
+            if (guard is not None and guard.deadline_s is not None
+                    and time.monotonic() - admit_time[b] > guard.deadline_s):
+                results[rid] = _finalize_partial(slot_toks[b], budget, eos)
+                reports[rid].update(status="timeout",
+                                    detail=f"deadline: exceeded {guard.deadline_s}s")
                 release_slot(b)
-    audit = pool.audit(holders={f"slot{b}": slot_pages[b] for b in range(B)
-                                if slot_pages[b]})
+                done[b] = True
+                jlog_done(rid)
+                continue
+            if len(slot_toks[b]) >= budget or (eos is not None and eos in slot_toks[b]):
+                results[rid] = _finalize_result(slot_toks[b], budget, eos)
+                release_slot(b)
+                jlog_done(rid)
+        # 5) durability: periodic pool checkpoint, then ONE fsync for the
+        #    whole chunk's records
+        if journal is not None:
+            if (serve_cfg.checkpoint_every > 0
+                    and chunk_idx % serve_cfg.checkpoint_every == 0
+                    and any(r is not None for r in slot_req)):
+                checkpoint()
+            journal.commit()
+        if injector is not None:
+            injector.crash_point("mid_decode", chunk_idx=chunk_idx - 1,
+                                 journal=journal)
+    if journal is not None:
+        journal.close()
+    holders = {f"slot{b}": slot_pages[b] for b in range(B) if slot_pages[b]}
+    if injector is not None and injector.held_pages:
+        holders["__fault_injector__"] = list(injector.held_pages)
+    audit = pool.audit(holders=holders)
+    if plan is not None:
+        verified = _verify_recovery(plan, results, reports)
+        if stats is not None:
+            stats["recovery"] = dict(plan.report(), verified=verified)
     if stats is not None:
         stats.update(
             scheduler="paged", max_concurrent=max_concurrent,
@@ -698,5 +1333,6 @@ def _serve_requests_paged(cfg: ArchConfig, params: dict, prompts: list,
             page_tokens=P, peak_live_pages=peak_live,
             pool_bytes=serve_cfg.kv_pages * kvcache.page_nbytes(
                 cfg.attn.n_kv_heads, cfg.attn.d_head, P, cfg.n_layers),
-            pool_audit=audit)
+            snapshot_drops=snapshot_drops, pool_audit=audit, reports=reports,
+            **_report_counts(reports))
     return results

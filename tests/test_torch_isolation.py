@@ -5,7 +5,7 @@
 * Entry points run on ``cuda`` unless the caller asks for the CPU: without a
   CUDA device they raise instead of running on the CPU.
 * What the port does not carry yet raises "not yet ported"; what it now
-  carries (the NVFP4/MXFP4 formats) resolves.
+  carries (the NVFP4/MXFP4 formats, the journal) resolves.
 """
 import ast
 import os
@@ -23,6 +23,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import lm
 from repro_torch.models.common import ModelCtx
+from repro_torch.runtime.guard import RecoveryError
 from repro_torch.runtime.serve_loop import (
     ServeConfig,
     prepare_params_for_serving,
@@ -65,10 +66,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_port_imports_in_a_process_without_jax():
     """Importing every module of the port loads no JAX module."""
     code = ("import sys, pkgutil, importlib, repro_torch\n"
+            "import repro_torch.checkpoint\n"
+            "import repro_torch.runtime.guard, repro_torch.runtime.faults\n"
+            "import repro_torch.runtime.journal\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "assert 'jax' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
@@ -112,10 +117,13 @@ def test_cpu_runs_only_when_asked():
 def test_not_yet_ported_parts_raise():
     assert get_format("nvfp4").name == "nvfp4"
     cfg = get_arch("qwen1.5-0.5b").reduced()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the journal is ported: resume without a journal_dir is a typed error
+    with pytest.raises(RecoveryError, match="journal_dir"):
         serve_requests(cfg, lm.init_params(cfg, 0, device="cpu"),
                        [torch.zeros(8, dtype=torch.long)], ModelCtx(),
                        ServeConfig(max_new_tokens=2), device="cpu", resume=True)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_arch("phi3.5-moe-42b-a6.6b")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         lm.abstract_params(get_arch("qwen1.5-0.5b").__class__(
             name="m", family="moe", n_layers=1, d_model=64, vocab=8))

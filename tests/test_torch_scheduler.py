@@ -47,6 +47,7 @@ from repro_torch.core import kvcache
 from repro_torch.core.qlinear import QuantConfig
 from repro_torch.models import lm
 from repro_torch.models.common import ModelCtx
+from repro_torch.runtime.guard import RecoveryError, ServeError
 from repro_torch.runtime.serve_loop import (PoolExhaustedError, ServeConfig,
                                             kv_format_fallback,
                                             prepare_params_for_serving, serve,
@@ -206,9 +207,16 @@ def test_kv_format_fallback_matches_reference():
 
 
 def test_not_yet_ported_scheduler_arguments_raise(params):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve_requests(CFG, params, _prompts(1, (8,)), CTX, ServeConfig(),
-                       device="cpu", resume=True)
+    """The journal is ported: resume=True without a journal_dir raises the
+    reference's typed RecoveryError (a ServeError) on both schedulers."""
+    for pages in (0, 8):
+        with pytest.raises(RecoveryError, match="journal_dir"):
+            serve_requests(CFG, params, _prompts(1, (8,)), CTX,
+                           ServeConfig(kv_format="hif4", kv_pages=pages,
+                                       kv_page_tokens=8, cache_capacity=24,
+                                       max_new_tokens=4),
+                           device="cpu", resume=True)
+    assert issubclass(RecoveryError, ServeError)
 
 
 # ---------------------------------------------------------------------------
