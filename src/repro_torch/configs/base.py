@@ -169,9 +169,7 @@ def register_arch(cfg: ArchConfig) -> ArchConfig:
 # the reference's architectures whose configs (and families) the port does
 # not carry yet
 NOT_YET_PORTED_ARCHS = frozenset({
-    "qwen1.5-4b", "qwen3-4b", "nemotron-4-340b", "granite-moe-1b-a400m",
-    "phi3.5-moe-42b-a6.6b", "mamba2-1.3b", "zamba2-2.7b", "whisper-tiny",
-    "llava-next-34b"})
+    "mamba2-1.3b", "zamba2-2.7b", "whisper-tiny", "llava-next-34b"})
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -199,6 +197,13 @@ def _ensure_loaded() -> None:
         return
     # import every ported config module once so registration side effects
     # run (the other architectures come with the families that serve them)
-    from repro_torch.configs import qwen15_0p5b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        granite_moe_1b,
+        nemotron_4_340b,
+        phi35_moe,
+        qwen15_0p5b,
+        qwen15_4b,
+        qwen3_4b,
+    )
 
     _LOADED = True

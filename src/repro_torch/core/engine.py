@@ -9,10 +9,11 @@ packed-KV decode attention (port of ``repro/core/engine.py``).
            by ``hif4_quantize`` and the kernel expands the 4.5-bit payload
            in shared memory. On CUDA tensors with at most ``DECODE_M_MAX``
            rows (decode) one launch does both (``fused_decode_matmul``,
-           kernel 1 as the prologue of kernel 2's decode form); with more
-           rows the two CUDA kernels launch. On CPU tensors their plain
-           versions run, with the reference's off-TPU size cap (above it:
-           dequantize-then-dot).
+           kernel 1 as the prologue of kernel 2's decode form) wherever
+           ``decode_plan`` fits its K range in shared memory; with more
+           rows, or a longer K, the two CUDA kernels launch. On CPU
+           tensors their plain versions run, with the reference's off-TPU
+           size cap (above it: dequantize-then-dot).
   pallas — on a PackedW the same fused path as ``packed``; on a dense weight
            both operands are quantized by Algorithm 1 on every call and
            contracted by the fixed-point kernel (``kernels.ops.matmul``): on
@@ -122,6 +123,37 @@ def matmul(x: torch.Tensor, w, ectx: EngineCtx = DEFAULT_ENGINE, *,
                        accum_dtype=accum_dtype)
 
 
+def qdq_einsum(eq: str, a: torch.Tensor, w: torch.Tensor, ectx: EngineCtx, *,
+               a_axis: int = -1, w_axis: int = 1) -> torch.Tensor:
+    """Batched-contraction einsum (the MoE expert matmuls) on the qdq path:
+    both operands fake-quantized along their contraction axes, then a plain
+    einsum. Batched-expert weights have no packed or kernel route, whatever
+    ``impl`` says (the (E, C) dispatch buffer re-tiles per step, so there is
+    no static packed operand to contract against)."""
+    cfg = ectx.quant
+    if cfg.enabled:
+        a = quantize_activation(a, cfg, axis=a_axis)
+        w = quantize_weight(w, cfg, axis=w_axis)
+    return torch.einsum(eq, a, w)
+
+
+def in_row_chunks(fn, x: torch.Tensor, rows: int, axis: int = 0
+                  ) -> torch.Tensor:
+    """``fn`` on chunks of exactly ``rows`` indices of ``x``'s ``axis`` (the
+    last one zero-padded, each chunk contiguous), concatenated along the
+    same axis of the results and cut back to ``x``'s length. Every call
+    has one shape, so a row's result does not depend on the rows beside it:
+    a GEMM's algorithm, and with it the order of its sums, may change with
+    its row count."""
+    n = x.shape[axis]
+    pad = list(x.shape)
+    pad[axis] = -n % rows
+    x = torch.cat([x, x.new_zeros(pad)], dim=axis)
+    out = torch.cat([fn(c.contiguous()) for c in x.split(rows, dim=axis)],
+                    dim=axis)
+    return out.narrow(axis, 0, n)
+
+
 # ---------------------------------------------------------------------------
 # qdq path
 # ---------------------------------------------------------------------------
@@ -176,9 +208,12 @@ def _fused_packed_matmul(x, w: PackedW, ectx: EngineCtx):
         if part_bytes > _PLAIN_FUSED_PART_BYTES_MAX:
             return _packed_matmul(x, w, ectx, contract_x=-1, accum_dtype=None)
     codes_km, meta_km = w.kernel_operands()
-    if x2.is_cuda and x2.shape[0] <= DECODE_M_MAX:
+    m = x2.shape[0]
+    if x2.is_cuda and m <= DECODE_M_MAX and decode_plan(m, k, n).one_launch:
         y = fused_decode_matmul(x2.contiguous(), codes_km, meta_km, out_dtype)
         return y.reshape(lead + (n,))
+    # prefill, or a decode linear whose K range the decode form cannot hold
+    # (its plan's two launches): kernel 1, then kernel 2
     ai, asc = hif4_quantize(x2.contiguous())
     # the kernel writes bf16 or f32 itself (bitwise the cast of its f32 sum)
     kernel_dtype = out_dtype if out_dtype == torch.bfloat16 else torch.float32
@@ -219,8 +254,11 @@ def _cuda_plan(m: int, k: int, n: int) -> tuple:
     CUDA tensors, with what its tiles tuple holds; the tiles)."""
     if m <= DECODE_M_MAX:
         plan = decode_plan(m, k, n)
-        return ("fused_decode_matmul (M, BN, K split)",
-                (m, plan.tile_n, plan.split))
+        if plan.one_launch:
+            return ("fused_decode_matmul (M, BN, K split)",
+                    (m, plan.tile_n, plan.split))
+        return ("hif4_quantize, then fused_packed_matmul (BM, BN, groups per "
+                "step)", cuda_tiles(m))
     return "fused_packed_matmul (BM, BN, stages)", cuda_tiles(m)
 
 

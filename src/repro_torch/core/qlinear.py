@@ -145,6 +145,10 @@ def hif4_dot_fixed_point(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # Packed weights (serving deployment artifact, 4.5 bits/value)
 # ---------------------------------------------------------------------------
 
+# values per slab of PackedW.from_dense (1 GiB of float32): a weight of
+# nemotron-4-340b's FFN (1.36 G values) packs in six slabs
+PACK_SLAB_VALUES = 2 ** 28
+
 
 @dataclasses.dataclass
 class PackedW:
@@ -222,7 +226,11 @@ class PackedW:
 
     @classmethod
     def from_dense(cls, w: torch.Tensor, contract_axes=(0,)) -> "PackedW":
-        """Quantize + pack a dense weight (offline PTQ)."""
+        """Quantize + pack a dense weight (offline PTQ), in slabs of output
+        columns of at most ``PACK_SLAB_VALUES`` values (at least one column
+        each): Algorithm 1's float32 temporaries are a slab's size, not the
+        weight's. Grouping runs along K within a column, so the result is
+        bitwise a one-shot pack."""
         nd = w.ndim
         contract_axes = tuple(a % nd for a in contract_axes)
         out_axes = tuple(a for a in range(nd) if a not in contract_axes)
@@ -230,10 +238,15 @@ class PackedW:
         n = math.prod(w.shape[a] for a in out_axes) if out_axes else 1
         if k % hif4.GROUP_SIZE:
             raise ValueError(f"K={k} of {tuple(w.shape)} is not a multiple of 64")
-        wt = w.permute(out_axes + contract_axes).reshape(n, k)
-        groups = wt.reshape(n, k // hif4.GROUP_SIZE, hif4.GROUP_SIZE)
-        packed = hif4.pack_groups(hif4.quantize_groups(groups.to(torch.float32)))
-        return cls(packed.codes, packed.meta, (k, n), w.dtype)
+        groups = w.permute(out_axes + contract_axes).reshape(
+            n, k // hif4.GROUP_SIZE, hif4.GROUP_SIZE)
+        cols = max(1, PACK_SLAB_VALUES // k)
+        slabs = [hif4.pack_groups(hif4.quantize_groups(
+            groups[c:c + cols].to(torch.float32))) for c in range(0, n, cols)]
+        if len(slabs) == 1:
+            return cls(slabs[0].codes, slabs[0].meta, (k, n), w.dtype)
+        return cls(torch.cat([p.codes for p in slabs]),
+                   torch.cat([p.meta for p in slabs]), (k, n), w.dtype)
 
     def dequantize(self) -> torch.Tensor:
         """Expand to the (K, N) dense weight."""

@@ -18,8 +18,8 @@ loaded. Nothing here runs at import time.
 Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel launch
 and nowhere else), so a run can show that its main path went through the
 kernels; the matmul wrappers also count them per (M, K, N) in
-:data:`SHAPE_LAUNCHES`, so a run can show which shapes its main path gave
-them.
+:data:`SHAPE_LAUNCHES`, and the quantizer per (M, K), so a run can show
+which shapes its main path gave them.
 """
 from __future__ import annotations
 

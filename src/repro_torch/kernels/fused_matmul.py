@@ -27,7 +27,11 @@ one launch computing bit for bit ``hif4_quantize`` -> ``fused_packed_matmul``
 -> ``.to(out_dtype)`` (:func:`fused_decode_matmul_plain`, its plain version).
 :func:`decode_plan` is its launch plan (column tile, K split across the
 CTAs of a cluster, shared bytes), which the wrapper passes to the kernel and
-the kernel checks against its own carve-up of shared memory.
+the kernel checks against its own carve-up of shared memory. A CTA holds its
+whole K range in shared memory, so at a K too long for a cluster of 8
+(nemotron-4-340b's FFN down-projection, K = 73 728) the plan names the two
+launches that replace it: kernel 1, then kernel 2's ``__dp4a`` body, which
+walks any K in steps of four 64-groups, bitwise the same function.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from repro_torch.kernels.bfp_matmul import (
     H100_SMS,
     SMEM_PER_CTA_MAX,
     bfp_matmul_quantized_plain,
+    cuda_tiles,
     prefill_plan,
 )
 from repro_torch.kernels.hif4_quant import absorbed_activation
@@ -131,16 +136,31 @@ DECODE_MAX_SPLIT = 8        # the largest portable thread block cluster
 _DECODE_B_STRIDE = 17       # int32 words per expanded column
 
 
+# the launches of a decode linear: the decode form, or where its K range does
+# not fit a CTA's shared memory, kernel 1 then kernel 2's __dp4a body
+DECODE_FORM = ("fused_decode_matmul",)
+DECODE_TWO_LAUNCHES = ("hif4_quantize", "fused_packed_matmul")
+
+
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
-    """The launch of :func:`fused_decode_matmul`: ``grid`` CTAs in clusters
+    """How a linear of at most ``DECODE_M_MAX`` rows launches. ``kernels``
+    ``DECODE_FORM``: :func:`fused_decode_matmul`, ``grid`` CTAs in clusters
     of ``split`` that share one column tile of ``tile_n`` and split its K
-    axis, each with ``smem_bytes`` of dynamic shared memory."""
+    axis, each with ``smem_bytes`` of dynamic shared memory.
+    ``DECODE_TWO_LAUNCHES``: kernel 1, then kernel 2's ``__dp4a`` body with
+    ``grid`` column tiles of ``tile_n`` (``split`` 1, static shared memory
+    only, so ``smem_bytes`` 0)."""
 
     tile_n: int
     split: int
     grid: int
     smem_bytes: int
+    kernels: tuple = DECODE_FORM
+
+    @property
+    def one_launch(self) -> bool:
+        return self.kernels == DECODE_FORM
 
 
 def _r16(nbytes: int) -> int:
@@ -164,7 +184,8 @@ def decode_plan(m: int, k: int, n: int) -> DecodePlan:
     """Column tiles of 32; the K split doubles (up to 8 CTAs per cluster, at
     least one 64-group each) until the grid holds two CTAs per SM of the
     H100 (at N = 1024 the cluster of 8 stops it at 256 CTAs), and further
-    while a CTA's shared memory exceeds 227 KB."""
+    while a CTA's shared memory exceeds 227 KB. Where even the largest split
+    does not fit, the plan is ``DECODE_TWO_LAUNCHES``."""
     if not 1 <= m <= DECODE_M_MAX or k < GROUP or k % GROUP or n < 1:
         raise ValueError(f"the decode form takes 1 <= M <= {DECODE_M_MAX}, "
                          f"K % 64 == 0 and N >= 1, got (M, K, N) = {(m, k, n)}")
@@ -179,9 +200,9 @@ def decode_plan(m: int, k: int, n: int) -> DecodePlan:
         if smem <= SMEM_PER_CTA_MAX:
             return DecodePlan(DECODE_TILE_N, split, tiles * split, smem)
         if split == DECODE_MAX_SPLIT or 2 * split > groups:
-            raise ValueError(f"the decode form does not fit (M, K, N) = "
-                             f"{(m, k, n)} in {SMEM_PER_CTA_MAX} B of shared "
-                             f"memory per CTA")
+            tile_n = cuda_tiles(m)[1]
+            return DecodePlan(tile_n, 1, -(-n // tile_n), 0,
+                              DECODE_TWO_LAUNCHES)
         split *= 2
 
 
@@ -231,6 +252,10 @@ def fused_decode_matmul(x, codes_km, meta_km, out_dtype=None) -> torch.Tensor:
             raise ValueError("fused_decode_matmul: operands must be 16-byte "
                              "aligned")
     plan = decode_plan(M, K, N)
+    if not plan.one_launch:
+        raise ValueError(f"the decode form does not fit (M, K, N) = "
+                         f"{(M, K, N)} in {SMEM_PER_CTA_MAX} B of shared memory "
+                         f"per CTA; its route is {' then '.join(plan.kernels)}")
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = build.function("fused_decode_matmul", "fused_decode_matmul",

@@ -55,5 +55,5 @@ def hif4_quantize(x: torch.Tensor):
                         [p, p, p, ctypes.c_longlong, p])
     rc = fn(x.data_ptr(), ints.data_ptr(), scales.data_ptr(),
             M * K // GROUP, build.stream_ptr(x.device))
-    build.check("hif4_quant", "hif4_quantize", rc)
+    build.check("hif4_quant", "hif4_quantize", rc, (M, K))
     return ints, scales

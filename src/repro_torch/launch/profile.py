@@ -2,6 +2,7 @@
 
     python -m repro_torch.launch.profile --arch qwen1.5-0.5b   # on the card
     python -m repro_torch.launch.profile --kv-pages 65         # paged pool
+    python -m repro_torch.launch.profile --arch granite-moe-1b-a400m
 
 Builds the serving artifact (policy paper-iv, impl packed, HiF4 KV) from
 random weights (``--seed``), prefills ``--batch`` x ``--prompt-len`` tokens,
@@ -14,7 +15,11 @@ With ``--kv-pages N`` the prefilled cache is cut into pages of 64 tokens
 and laid into a pool of N pages (one table row of distinct pages per slot,
 page 0 the scratch page), and the
 step decodes through the page table (kernel 4) as the paged scheduler's
-steps do. CUDA only: a time taken on the CPU is not a device time.
+steps do. For a MoE arch it also times the expert matmuls of one step
+(every ``qdq_einsum`` call, its activation quantization included) replayed
+alone: events around the eager calls, and a CUDA graph of them (device time
+only). Weights are drawn on the card. CUDA only: a time taken on the CPU is
+not a device time.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import time
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.core import kvcache
+from repro_torch.core import engine, kvcache
 from repro_torch.core.policy import get_policy
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -95,8 +100,9 @@ def main(argv=None) -> int:
                                          kv=kvcache.KV_HIF4))
     ctx = ModelCtx(plan=plan)
     sctx = serving_ctx(ctx)
-    params = prepare_params_for_serving(lm.init_params(cfg, args.seed, device="cpu"),
-                                        cfg, plan, device=dev)
+    params = prepare_params_for_serving(
+        lm.init_params(cfg, args.seed, device=dev, draw_on_device=True), cfg,
+        plan, device=dev)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=torch.Generator().manual_seed(args.seed + 1))
     budget = args.steps + 4
@@ -146,7 +152,56 @@ def main(argv=None) -> int:
     print("top host time (self, per step):")
     for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:args.top]:
         print(f"  {e.self_cpu_time_total / 2e3:9.3f} ms  {e.count / 2:6.0f}x  {e.key[:90]}")
+    if cfg.moe is not None:
+        expert_einsums(step, token, cache, step_ms, busy_ms / 2)
     return 0
+
+
+def expert_einsums(step, token, cache, step_ms: float, busy_ms: float) -> None:
+    """Record the ``qdq_einsum`` calls of one decode step, then time them
+    replayed alone: ``eager`` (events around the calls, host dispatch
+    included where the host is slower) and ``device`` (one CUDA graph of
+    them, replayed)."""
+    calls, einsum = [], engine.qdq_einsum
+
+    def recording(*a, **kw):
+        calls.append((a, kw))
+        return einsum(*a, **kw)
+
+    engine.qdq_einsum = recording
+    try:
+        step(token, cache)
+    finally:
+        engine.qdq_einsum = einsum
+
+    def replay():
+        for a, kw in calls:
+            einsum(*a, **kw)
+
+    replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(3):
+        replay()
+    end.record()
+    torch.cuda.synchronize()
+    eager_ms = start.elapsed_time(end) / 3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end) / 3
+    print(f"expert qdq einsums: {len(calls)} calls/step, device {device_ms:.3f} "
+          f"ms/step (CUDA graph; {100 * device_ms / busy_ms:.1f}% of the "
+          f"step's device busy, {100 * device_ms / step_ms:.1f}% of its "
+          f"{step_ms:.2f} ms), eager {eager_ms:.3f} ms/step")
 
 
 if __name__ == "__main__":

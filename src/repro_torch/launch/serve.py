@@ -110,23 +110,21 @@ def _print_plan(plan, serving_params):
               f"{art:<34} {nbytes:>12,}")
 
 
-def _first_packed(tree):
+def _packed_leaves(tree) -> list:
+    """The PackedW leaves, per-layer slices of the stacked ones."""
     if isinstance(tree, PackedW):
-        return tree
+        return [tree.layer(0) if tree.codes.ndim > (2 if tree.kernel_layout
+                                                    else 3) else tree]
     if isinstance(tree, dict):
-        for v in tree.values():
-            found = _first_packed(v)
-            if found is not None:
-                return found
-    return None
+        return [pw for v in tree.values() for pw in _packed_leaves(v)]
+    return []
 
 
 def _print_kernel_dispatch(serving_params, ctx, args, device):
-    pw = _first_packed(serving_params)
-    if pw is None:
+    pws = _packed_leaves(serving_params)
+    if not pws:
         return
-    if pw.codes.ndim > (2 if pw.kernel_layout else 3):
-        pw = pw.layer(0)
+    pw = pws[0]
     info = packed_dispatch_info(ctx.quant, pw, decode_m=args.batch,
                                 prefill_m=args.batch * args.prompt_len,
                                 device=device)
@@ -141,6 +139,15 @@ def _print_kernel_dispatch(serving_params, ctx, args, device):
         line += (f"; decode {info['decode_kernel']}={info['decode_tiles']}, "
                  f"prefill {info['prefill_kernel']}={info['prefill_tiles']}")
     print(line)
+    # the decode linears whose K range the decode form cannot hold
+    for other in {w.shape2d: w for w in pws[1:]}.values():
+        o = packed_dispatch_info(ctx.quant, other, decode_m=args.batch,
+                                 prefill_m=args.batch * args.prompt_len,
+                                 device=device)
+        if o["decode_kernel"] != info["decode_kernel"]:
+            k, n = other.shape2d
+            print(f"packed matmul: fused [{o['execution']}] on (K={k}, N={n}); "
+                  f"decode {o['decode_kernel']}={o['decode_tiles']}")
 
 
 def _print_head_dispatch(cfg, ctx, args, device):

@@ -1,4 +1,5 @@
-"""Language model entry points, dense family (port of ``repro/models/lm.py``).
+"""Language model entry points, the transformer families dense and moe (port
+of ``repro/models/lm.py``).
 
   abstract_params(cfg)                       -> PSpec tree (no allocation)
   init_params(cfg, seed, device=...)         -> materialized params
@@ -27,11 +28,12 @@ from repro_torch.core import kvcache
 from repro_torch.core.policy import STACKED_COLLECTIONS, QuantPlan, QuantPolicy
 from repro_torch.core.qlinear import PackedW, QuantConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelCtx, dense
 from repro_torch.models.params import PSpec, init_from_specs, map_specs, stack_specs
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -42,8 +44,15 @@ def _check_family(cfg: ArchConfig) -> None:
 
 
 def _tblock_specs(cfg: ArchConfig) -> dict:
-    return {"norm1": tf.norm_specs(cfg), "attn": tf.attn_specs(cfg),
-            "norm2": tf.norm_specs(cfg), "mlp": tf.mlp_specs(cfg)}
+    """Transformer block: norm, attention, norm, FFN (the MoE FFN for the
+    moe family, else the dense MLP)."""
+    specs = {"norm1": tf.norm_specs(cfg), "attn": tf.attn_specs(cfg),
+             "norm2": tf.norm_specs(cfg)}
+    if cfg.family == "moe":
+        specs["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        specs["mlp"] = tf.mlp_specs(cfg)
+    return specs
 
 
 def abstract_params(cfg: ArchConfig) -> dict:
@@ -59,10 +68,11 @@ def abstract_params(cfg: ArchConfig) -> dict:
     return specs
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, *,
-                device: DeviceLike = None) -> dict:
+def init_params(cfg: ArchConfig, seed: int = 0, *, device: DeviceLike = None,
+                draw_on_device: bool = False) -> dict:
     """Random weights from ``seed`` (see :func:`init_from_specs`)."""
-    return init_from_specs(abstract_params(cfg), seed, device=device)
+    return init_from_specs(abstract_params(cfg), seed, device=device,
+                           draw_on_device=draw_on_device)
 
 
 def abstract_cache(cfg: ArchConfig, batch: int, seq: int,
@@ -167,7 +177,11 @@ def _tblock_apply(p, x, cfg, ctx, *, mode, cache=None, pos=None, pages=None):
                                     return_cache=(mode == "prefill"))
     x = x + a
     h2 = tf.norm_apply(p["norm2"], x, cfg)
-    return x + tf.mlp_apply(p["mlp"], h2, cfg, ctx), new_cache
+    if "moe" in p:
+        f = moe_mod.moe_apply(p["moe"], h2, cfg, ctx)
+    else:
+        f = tf.mlp_apply(p["mlp"], h2, cfg, ctx)
+    return x + f, new_cache
 
 
 def _transformer_forward(params, x, cfg, ctx, *, mode, caches=None, pos=None,

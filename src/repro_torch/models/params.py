@@ -55,11 +55,17 @@ def stack_specs(tree, n: int, axis_name: str = "layers"):
                                       axes=(axis_name,) + p.axes), tree)
 
 
-def init_from_specs(tree, seed: int = 0, *, device: DeviceLike = None):
+def init_from_specs(tree, seed: int = 0, *, device: DeviceLike = None,
+                    draw_on_device: bool = False):
     """Materialize parameters: leaf i (sorted-key order) draws a truncated
     normal (+-2 std) from its own ``torch.Generator`` seeded by (seed, i),
-    on the CPU, so the weights do not depend on the device they land on."""
+    on the CPU, so the weights do not depend on the device they land on.
+    ``draw_on_device`` draws with a generator on ``device`` instead: the
+    CPU's generator takes minutes for the billions of values of a
+    full-width model, the card's a second (other values, from the same
+    seeds)."""
     dev = resolve_device(device)
+    gdev = dev if draw_on_device else torch.device("cpu")
     leaves = spec_leaves(tree)
     index = {path: i for i, (path, _) in enumerate(leaves)}
 
@@ -68,10 +74,11 @@ def init_from_specs(tree, seed: int = 0, *, device: DeviceLike = None):
             return torch.zeros(p.shape, dtype=p.dtype, device=dev)
         if p.init == "ones":
             return torch.ones(p.shape, dtype=p.dtype, device=dev)
-        gen = torch.Generator().manual_seed(seed * 1_000_003 + index[path])
-        x = torch.empty(p.shape, dtype=torch.float32)
+        gen = torch.Generator(device=gdev).manual_seed(
+            seed * 1_000_003 + index[path])
+        x = torch.empty(p.shape, dtype=torch.float32, device=gdev)
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return (x * p.std).to(dtype=p.dtype, device=dev)
+        return x.mul_(p.std).to(dtype=p.dtype, device=dev)
 
     def walk(node, prefix):
         if isinstance(node, dict):

@@ -221,8 +221,8 @@ def test_launcher_serves_on_cpu():
 
 def test_launcher_refuses_flags_not_yet_ported():
     """The robustness flags are ported; a family the port does not carry
-    yet (a MoE arch) still exits nonzero with "not yet ported"."""
-    out = _launch("--arch", "phi3.5-moe-42b-a6.6b", "--reduced", "--device", "cpu")
+    yet (an SSM arch) still exits nonzero with "not yet ported"."""
+    out = _launch("--arch", "mamba2-1.3b", "--reduced", "--device", "cpu")
     assert out.returncode != 0 and "not yet ported" in out.stderr
 
 
