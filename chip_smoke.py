@@ -107,6 +107,21 @@ Phases (any failure ends the run with a nonzero exit):
              2 layers card (kernels) vs card (plain versions, bitwise
              prefill logits) vs CPU: at most 1% of the prefill logits
              outside rtol=0.05, atol=0.1, the routing flips counted.
+10. ssm    — the Mamba2 SSM and hybrid families (prompt 512, a multiple of
+             the SSD chunk): kernels 1, 2 and 5 at the shapes they give,
+             each bitwise its plain version and timed (kernel 2 at mamba2's
+             six linears, N 64 and 128 among them; kernel 5's tensor-core
+             body and decode form at zamba2's dense linears, N 64 and 80
+             among them); lockstep serves at full width and depth, weights
+             drawn on the card at 5x: mamba2-1.3b (48 layers, paper-iv,
+             impl packed) and zamba2-2.7b (54 Mamba layers, 9 calls of the
+             shared block, impl pallas, HiF4 KV narrowed to bf16 with one
+             KVFallbackWarning), batch 8, 32 new tokens, exact launches per
+             kernel and shape, tokens that vary, the first 4 steps against
+             the plain versions; mamba2 on 2 layers card (kernels) vs card
+             (plain versions, bitwise prefill logits) vs CPU: at most 1% of
+             the prefill logits outside rtol=0.05, atol=0.1, tokens equal;
+             mamba2's decode step profiled (repro_torch.launch.profile).
 
 The last lines are the kernel records as one JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. The script imports
@@ -119,6 +134,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2308,6 +2324,139 @@ def _iters(bound_ms: float) -> int:
     return max(5, min(200, int(2.0 / max(bound_ms, 1e-4))))
 
 
+def _bits(t):
+    import torch
+
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _row(t, plain_ms, bound, library_ms, **kw):
+    """A kernel record's row at one shape: times, bound and yardstick; its
+    launches are filled in by the serve that runs the shape."""
+    bound_ms, bound_by, _ = bound
+    return {**t, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "launches": 0, **kw}
+
+
+def quantize_row(dev, gen, arch, mq, k, x, records, group="families"):
+    """Kernel 1 on ``x`` (mq, k) bf16: bitwise its plain version, timed on
+    copies that together overflow the L2; a row under ``group``."""
+    import torch
+    from repro_torch.kernels.hif4_quant import absorbed_activation, hif4_quantize
+
+    ki, ks = hif4_quantize(x)
+    pi, ps = absorbed_activation(x)
+    torch.cuda.synchronize()
+    check(torch.equal(ki, pi) and torch.equal(ks.view(torch.int32),
+                                              ps.view(torch.int32)),
+          f"hif4_quantize {arch} ({mq}, {k}): ints differ at "
+          f"{int((ki != pi).sum())} positions, scales at "
+          f"{int((ks.view(torch.int32) != ps.view(torch.int32)).sum())}")
+    del ki, ks, pi, ps
+    xs = [x] + [torch.randn(mq, k, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(-(-60 * 2 ** 20 // (mq * k * 2)) - 1)]
+    bound_ms = _quantize_bound_ms(mq, k)
+    t = timed(hif4_quantize, [(v,) for v in xs], iters=_iters(bound_ms))
+    plain_ms = cuda_ms(absorbed_activation, [(x,)], iters=3, warmup=1)
+    print(f"  hif4_quantize {arch} ({mq}, {k}) bf16: bitwise the plain "
+          f"version; {_times(t)} plain_ms={plain_ms:.5f} bound_ms="
+          f"{bound_ms:.6f} (bytes) library_ms=n/a (no single PyTorch call)")
+    records.setdefault("hif4_quantize", {}).setdefault(group, []).append(
+        {**t, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+         "library_ms": None, "launches": 0, "max_abs_err": 0.0, "arch": arch,
+         "shape": f"x ({mq}, {k}) bf16",
+         "counted_as": ("hif4_quantize", (mq, k))})
+    del xs
+
+
+def packed_shape_rows(dev, gen, arch, k, n, m, mp, quantized, records,
+                      group="families"):
+    """Kernel 2 at (K, N) in its decode route (the engine's: the decode form,
+    or kernel 1 then the __dp4a body) at ``m`` rows and its prefill form at
+    ``mp``, each bitwise its plain version and timed (kernel 1 at each new
+    activation shape first); rows under ``group``. ``quantized`` holds the
+    (M, K) kernel 1 already has rows for."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.qlinear import PackedW, QuantConfig
+    from repro_torch.kernels.fused_matmul import (
+        decode_plan, fused_decode_matmul_plain, fused_packed_matmul,
+        fused_packed_matmul_plain)
+    from repro_torch.kernels.hif4_quant import hif4_quantize
+
+    ectx = engine.EngineCtx(QuantConfig(fmt="hif4", impl="packed"))
+
+    def decode_route(x, pw):
+        return engine.matmul(x, pw, ectx)
+
+    def decode_plain(x, pw):
+        return fused_decode_matmul_plain(x, pw.codes, pw.meta)
+
+    w = (torch.randn(k, n, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    pw = PackedW.from_dense(w).to_kernel_layout()
+    plan = decode_plan(m, k, n)
+    # the decode route
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    if not plan.one_launch and (m, k) not in quantized:
+        quantized.add((m, k))
+        quantize_row(dev, gen, arch, m, k, x, records, group)
+    y, ref = decode_route(x, pw), decode_plain(x, pw)
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(y), _bits(ref)), f"{arch} decode M={m} K={k} "
+          f"N={n}: not bitwise equal to the plain version at "
+          f"{int((_bits(y) != _bits(ref)).sum())} outputs")
+    rot = max(1, -(-60 * 2 ** 20 // (k * n * 9 // 16)))
+    ws = [(pw, w)] + [(lambda v: (PackedW.from_dense(v).to_kernel_layout(),
+                                  v))((torch.randn(k, n, generator=gen,
+                                                   device=dev) * 0.02
+                                       ).to(torch.bfloat16))
+                      for _ in range(rot - 1)]
+    bound = _decode_bound_ms(m, k, n)
+    args = [(x, p) for p, _ in ws]
+    t = timed(decode_route, args, iters=_iters(bound[0]))
+    plain_ms = cuda_ms(decode_plain, args, iters=3, warmup=1)
+    library_ms = cuda_ms(torch.matmul, [(x, v) for _, v in ws],
+                         iters=_iters(bound[0]))
+    name = "fused_decode_matmul" if plan.one_launch else "fused_packed_matmul"
+    route = ("decode form" if plan.one_launch else
+             "kernel 1, then the __dp4a body")
+    print(f"  {arch} M={m} K={k} N={n} bf16 ({route}): bitwise the plain "
+          f"version; {_times(t)} plain_ms={plain_ms:.5f} "
+          f"bound_ms={bound[0]:.6f} ({bound[1]}) library_ms="
+          f"{library_ms:.5f} (torch.matmul bf16 dense); {card_line()}")
+    records.setdefault(name, {}).setdefault(group, []).append(_row(
+        t, plain_ms, bound, library_ms, arch=arch, form=route,
+        shape=f"M={m} K={k} N={n} bf16", counted_as=(name, (m, k, n))))
+    # the prefill form
+    xp = torch.randn(mp, k, generator=gen, device=dev).to(torch.bfloat16)
+    if (mp, k) not in quantized:
+        quantized.add((mp, k))
+        quantize_row(dev, gen, arch, mp, k, xp, records, group)
+    ai, asc = hif4_quantize(xp)
+    y = fused_packed_matmul(ai, asc, pw.codes, pw.meta, torch.bfloat16)
+    ref = fused_packed_matmul_plain(ai, asc, pw.codes, pw.meta, torch.bfloat16)
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(y), _bits(ref)), f"{arch} prefill M={mp} K={k} "
+          f"N={n}: not bitwise equal to the plain version")
+    del y, ref
+    bound = _prefill_bound_ms(mp, k, n)
+    args = [(ai, asc, p.codes, p.meta, torch.bfloat16) for p, _ in ws[:2]]
+    t = timed(fused_packed_matmul, args, iters=_iters(bound[0]))
+    plain_ms = cuda_ms(fused_packed_matmul_plain, args[:1], iters=1, warmup=1)
+    library_ms = cuda_ms(torch.matmul, [(xp, v) for _, v in ws[:2]],
+                         iters=_iters(bound[0]))
+    print(f"  {arch} M={mp} K={k} N={n} bf16 out (prefill form): bitwise "
+          f"the plain version; {_times(t)} plain_ms={plain_ms:.5f} "
+          f"bound_ms={bound[0]:.6f} ({bound[1]}) library_ms="
+          f"{library_ms:.5f}")
+    records.setdefault("fused_packed_matmul", {}).setdefault(group, []).append(
+        _row(t, plain_ms, bound, library_ms, arch=arch, form="prefill form",
+             shape=f"M={mp} K={k} N={n} bf16 out",
+             counted_as=("fused_packed_matmul", (mp, k, n))))
+    del ws, args, w, pw, x, xp, ai, asc
+    torch.cuda.empty_cache()
+
+
 def family_kernels(dev, records):
     """Kernel 1 on the new activation shapes (each new K at 3 840 rows, and
     nemotron's 73 728 at 8), kernel 2 at the new shapes, in its decode route
@@ -2319,136 +2468,18 @@ def family_kernels(dev, records):
     its launches."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.core import engine, kvcache
-    from repro_torch.core.qlinear import PackedW, QuantConfig
+    from repro_torch.core import kvcache
     from repro_torch.kernels.fused_attention import (
         fused_decode_attention, fused_decode_attention_plain,
         fused_paged_decode_attention, fused_paged_decode_attention_plain)
-    from repro_torch.kernels.fused_matmul import (
-        decode_plan, fused_decode_matmul_plain, fused_packed_matmul,
-        fused_packed_matmul_plain)
-    from repro_torch.kernels.hif4_quant import absorbed_activation, hif4_quantize
 
     gen = torch.Generator(device=dev).manual_seed(21)
-    ectx = engine.EngineCtx(QuantConfig(fmt="hif4", impl="packed"))
     m, mp = FAMILY_BATCH, FAMILY_BATCH * FAMILY_PROMPT
-
-    def bits(t):
-        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
-
-    def decode_route(x, pw):
-        return engine.matmul(x, pw, ectx)
-
-    def decode_plain(x, pw):
-        return fused_decode_matmul_plain(x, pw.codes, pw.meta)
-
-    def row(t, plain_ms, bound, library_ms, **kw):
-        bound_ms, bound_by, _ = bound
-        return {**t, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms, "launches": 0,
-                **kw}
-
-    def quantize_row(arch, mq, k, x):
-        """Kernel 1 on ``x`` (mq, k) bf16: bitwise its plain version, timed
-        on copies that together overflow the L2."""
-        ki, ks = hif4_quantize(x)
-        pi, ps = absorbed_activation(x)
-        torch.cuda.synchronize()
-        check(torch.equal(ki, pi) and torch.equal(ks.view(torch.int32),
-                                                  ps.view(torch.int32)),
-              f"hif4_quantize {arch} ({mq}, {k}): ints differ at "
-              f"{int((ki != pi).sum())} positions, scales at "
-              f"{int((ks.view(torch.int32) != ps.view(torch.int32)).sum())}")
-        del ki, ks, pi, ps
-        xs = [x] + [torch.randn(mq, k, generator=gen, device=dev).to(
-            torch.bfloat16) for _ in range(-(-60 * 2 ** 20 // (mq * k * 2)) - 1)]
-        bound_ms = _quantize_bound_ms(mq, k)
-        t = timed(hif4_quantize, [(v,) for v in xs], iters=_iters(bound_ms))
-        plain_ms = cuda_ms(absorbed_activation, [(x,)], iters=3, warmup=1)
-        print(f"  hif4_quantize {arch} ({mq}, {k}) bf16: bitwise the plain "
-              f"version; {_times(t)} plain_ms={plain_ms:.5f} bound_ms="
-              f"{bound_ms:.6f} (bytes) library_ms=n/a (no single PyTorch call)")
-        records.setdefault("hif4_quantize", {}).setdefault(
-            "families", []).append({**t, "plain_ms": plain_ms,
-                                    "bound_ms": bound_ms, "bound_by": "bytes",
-                                    "library_ms": None, "launches": 0,
-                                    "max_abs_err": 0.0, "arch": arch,
-                                    "shape": f"x ({mq}, {k}) bf16",
-                                    "counted_as": ("hif4_quantize", (mq, k))})
-        del xs
-
     quantized = {(mp, 1024)}            # check_quantize's prefill shape
 
     for arch, shapes in FAMILY_SHAPES:
         for k, n in shapes:
-            w = (torch.randn(k, n, generator=gen, device=dev) * 0.02
-                 ).to(torch.bfloat16)
-            pw = PackedW.from_dense(w).to_kernel_layout()
-            plan = decode_plan(m, k, n)
-            # the decode route
-            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-            if not plan.one_launch and (m, k) not in quantized:
-                quantized.add((m, k))
-                quantize_row(arch, m, k, x)
-            y, ref = decode_route(x, pw), decode_plain(x, pw)
-            torch.cuda.synchronize()
-            check(torch.equal(bits(y), bits(ref)), f"{arch} decode M={m} K={k} "
-                  f"N={n}: not bitwise equal to the plain version at "
-                  f"{int((bits(y) != bits(ref)).sum())} outputs")
-            rot = max(1, -(-60 * 2 ** 20 // (k * n * 9 // 16)))
-            ws = [(pw, w)] + [(lambda v: (PackedW.from_dense(v).to_kernel_layout(),
-                                          v))((torch.randn(k, n, generator=gen,
-                                                           device=dev) * 0.02
-                                               ).to(torch.bfloat16))
-                              for _ in range(rot - 1)]
-            bound = _decode_bound_ms(m, k, n)
-            args = [(x, p) for p, _ in ws]
-            t = timed(decode_route, args, iters=_iters(bound[0]))
-            plain_ms = cuda_ms(decode_plain, args, iters=3, warmup=1)
-            library_ms = cuda_ms(torch.matmul, [(x, v) for _, v in ws],
-                                 iters=_iters(bound[0]))
-            name = "fused_decode_matmul" if plan.one_launch else "fused_packed_matmul"
-            route = ("decode form" if plan.one_launch else
-                     "kernel 1, then the __dp4a body")
-            print(f"  {arch} M={m} K={k} N={n} bf16 ({route}): bitwise the plain "
-                  f"version; {_times(t)} plain_ms={plain_ms:.5f} "
-                  f"bound_ms={bound[0]:.6f} ({bound[1]}) library_ms="
-                  f"{library_ms:.5f} (torch.matmul bf16 dense); {card_line()}")
-            records.setdefault(name, {}).setdefault("families", []).append(row(
-                t, plain_ms, bound, library_ms, arch=arch, form=route,
-                shape=f"M={m} K={k} N={n} bf16", counted_as=(name, (m, k, n))))
-            # the prefill form
-            xp = torch.randn(mp, k, generator=gen, device=dev).to(torch.bfloat16)
-            if (mp, k) not in quantized:
-                quantized.add((mp, k))
-                quantize_row(arch, mp, k, xp)
-            ai, asc = hif4_quantize(xp)
-            y = fused_packed_matmul(ai, asc, pw.codes, pw.meta, torch.bfloat16)
-            ref = fused_packed_matmul_plain(ai, asc, pw.codes, pw.meta,
-                                            torch.bfloat16)
-            torch.cuda.synchronize()
-            check(torch.equal(bits(y), bits(ref)), f"{arch} prefill M={mp} K={k} "
-                  f"N={n}: not bitwise equal to the plain version")
-            del y, ref
-            bound = _prefill_bound_ms(mp, k, n)
-            args = [(ai, asc, p.codes, p.meta, torch.bfloat16) for p, _ in ws[:2]]
-            t = timed(fused_packed_matmul, args, iters=_iters(bound[0]))
-            plain_ms = cuda_ms(fused_packed_matmul_plain, args[:1], iters=1,
-                               warmup=1)
-            library_ms = cuda_ms(torch.matmul, [(xp, v) for _, v in ws[:2]],
-                                 iters=_iters(bound[0]))
-            print(f"  {arch} M={mp} K={k} N={n} bf16 out (prefill form): bitwise "
-                  f"the plain version; {_times(t)} plain_ms={plain_ms:.5f} "
-                  f"bound_ms={bound[0]:.6f} ({bound[1]}) library_ms="
-                  f"{library_ms:.5f}")
-            records.setdefault("fused_packed_matmul", {}).setdefault(
-                "families", []).append(row(t, plain_ms, bound, library_ms,
-                                           arch=arch, form="prefill form",
-                                           shape=f"M={mp} K={k} N={n} bf16 out",
-                                           counted_as=("fused_packed_matmul",
-                                                       (mp, k, n))))
-            del ws, args, w, pw, x, xp, ai, asc
-            torch.cuda.empty_cache()
+            packed_shape_rows(dev, gen, arch, k, n, m, mp, quantized, records)
 
     cpu_gen = torch.Generator().manual_seed(22)
     for arch, hkv, h, d, cap in FAMILY_ATTENTION:
@@ -2506,12 +2537,22 @@ def family_kernels(dev, records):
     plain_ms = cuda_ms(lambda *a: fused_paged_decode_attention_plain(
         *a, hkv, d), args, iters=5)
     bound_ms = attention_bound_ms(hkv, d, length, pages, P, heads=h)
+    dense = []
+    for kp, vp in pools:
+        kd, vd = (kvcache.dequantize_kv(_contiguous_from_pages(c, pages), hkv, d)
+                  .transpose(1, 2).repeat_interleave(h // hkv, 1)
+                  for c in (kp, vp))
+        dense.append((q[:, :, None], kd, vd))
+    library_ms = cuda_ms(F.scaled_dot_product_attention, dense, iters=100)
     print(f"  fused_paged_decode_attention granite B={m} Hkv={hkv} H={h} D={d} "
           f"P={P}, ragged table: {_times(t)} plain_ms={plain_ms:.5f} "
-          f"bound_ms={bound_ms:.6f} (bytes)")
+          f"bound_ms={bound_ms:.6f} (bytes) library_ms={library_ms:.5f} "
+          f"(scaled_dot_product_attention on the gathered, dequantized bf16 "
+          f"K/V, not the same function)")
+    del dense
     records.setdefault("fused_paged_decode_attention", {}).setdefault(
         "families", []).append({**t, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                "bound_by": "bytes", "library_ms": None,
+                                "bound_by": "bytes", "library_ms": library_ms,
                                 "arch": "granite-moe-1b-a400m", "launches": 0,
                                 "counted_as": ("fused_paged_decode_attention",),
                                 "max_abs_err": err,
@@ -2533,12 +2574,13 @@ def _packed_shapes(sparams) -> list:
     return walk(sparams["blocks"])
 
 
-def expected_launches(cfg, shapes, steps, m, mp) -> tuple[dict, dict]:
+def expected_launches(cfg, shapes, steps, m, mp, attention_layers=None
+                      ) -> tuple[dict, dict]:
     """The launches (all, and per (kernel, shape)) of a lockstep serve:
     per layer each packed linear once at the prefill's ``mp`` rows (kernel
     1, then kernel 2) and once per decode step at ``m`` rows (the decode
     form, or where its plan says so kernel 1 then kernel 2); kernel 3 once
-    per layer and step."""
+    per attention layer (default: every layer) and step."""
     from repro_torch.kernels import build
     from repro_torch.kernels.fused_matmul import decode_plan
 
@@ -2560,16 +2602,17 @@ def expected_launches(cfg, shapes, steps, m, mp) -> tuple[dict, dict]:
         else:
             add("hif4_quantize", (m, k), L * steps)
             add("fused_packed_matmul", (m, k, n), L * steps)
-    want["fused_decode_attention"] = L * steps
+    want["fused_decode_attention"] = (
+        L if attention_layers is None else attention_layers) * steps
     return want, per
 
 
 def family_weights(cfg, seed: int, dev) -> dict:
     """A full-width serve's raw weights, drawn on ``dev``: the blocks (but a
-    MoE router, float32) and the embedding at 5x the init's scale, scaled
-    in place, as :func:`paged_weights` scales them. At the init's scale
-    every request repeats one token, and a wrong byte does not show in the
-    tokens."""
+    MoE router, float32; the SSM's f32 A, dt bias and skip), the hybrid's
+    shared block and the embedding at 5x the init's scale, scaled in place,
+    as :func:`paged_weights` scales them. At the init's scale every request
+    repeats one token, and a wrong byte does not show in the tokens."""
     import torch
     from repro_torch.models import lm
 
@@ -2583,6 +2626,7 @@ def family_weights(cfg, seed: int, dev) -> dict:
             node.mul_(5.0)
 
     scale(params["blocks"])
+    scale(params.get("shared", {}))
     scale(params["embed"])
     return params
 
@@ -2942,6 +2986,376 @@ def phase_families(dev, seed, records):
     part("done")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the Mamba2 SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+SSM_BATCH, SSM_PROMPT = 8, 512      # the prompt a multiple of the SSD chunk
+# (arch, impl, layers (None: all), new tokens): lockstep serves at full width
+SSM_SERVES = (("mamba2-1.3b", "packed", None, 32),
+              ("zamba2-2.7b", "pallas", None, 32))
+# (K, N) of mamba2's six packed linears (w_z / w_x, w_b / w_c, w_dt, w_out)
+SSM_PACKED_SHAPES = ((2048, 4096), (2048, 128), (2048, 64), (4096, 2048))
+# the e2e cut: mamba2 at full width on 2 layers, batch 2, prompt 64
+SSM_E2E = {"layers": 2, "batch": 2, "prompt": 64, "new": 8}
+
+
+def dense_sites(cfg) -> list:
+    """(K, N, calls per forward) of every 2-D dense linear of a hybrid
+    forward that runs the pallas route: the six Mamba linears of each of
+    the n_layers blocks; the shared block's q, k, v, o projections (reshaped
+    to 2-D) and its MLP, once per group."""
+    d, s, a = cfg.d_model, cfg.ssm, cfg.attn
+    di = s.expand * d
+    L, ns = cfg.n_layers, cfg.n_layers // cfg.hybrid_attn_every
+    sites = {}
+
+    def add(k, n, c):
+        sites[(k, n)] = sites.get((k, n), 0) + c
+
+    add(d, di, 2 * L)
+    add(d, s.n_groups * s.d_state, 2 * L)
+    add(d, di // s.head_dim, L)
+    add(di, d, L)
+    add(d, a.n_heads * a.d_head, ns)
+    add(d, a.n_kv_heads * a.d_head, 2 * ns)
+    add(a.n_heads * a.d_head, d, ns)
+    add(d, cfg.d_ff, ns)
+    add(cfg.d_ff, d, ns)
+    return [(k, n, c) for (k, n), c in sites.items()]
+
+
+def dense_expected(cfg, steps, m, mp) -> tuple[dict, dict]:
+    """The launches of a lockstep serve under impl pallas with no packed
+    weight: per dense site call, kernel 1 on x and on w.T then kernel 5's
+    tensor-core body at the prefill's ``mp`` rows; kernel 1 on x, then
+    kernel 5's decode form at each step's ``m`` rows."""
+    from repro_torch.kernels import build
+
+    want = dict.fromkeys(build.LAUNCHES, 0)
+    per: dict = {}
+
+    def add(kernel, shape, c):
+        want[kernel] += c
+        if shape is not None:
+            per[(kernel, shape)] = per.get((kernel, shape), 0) + c
+
+    for k, n, c in dense_sites(cfg):
+        add("hif4_quantize", (mp, k), c)
+        add("hif4_quantize", (n, k), c)
+        add("bfp_matmul_quantized", (mp, k, n), c)
+        add("hif4_quantize", (m, k), c * steps)
+        add("bfp_decode_matmul", (m, k, n), c * steps)
+        add("bfp_matmul_quantized", None, c * steps)
+    return want, per
+
+
+def dense_shape_rows(dev, gen, arch, k, n, m, mp, quantized, records,
+                     group="ssm"):
+    """Kernel 5 at a dense (K, N) the pallas route runs: at ``mp`` rows
+    kernel 1 on x and on w.T, then the tensor-core body; at ``m`` rows
+    kernel 1 on x, then the decode form (Algorithm 1 on the bf16 weight in
+    its loader); each bitwise its plain version and timed beside its bound
+    and torch.matmul bf16; kernel 1 at each new shape first."""
+    import torch
+    from repro_torch.kernels.bfp_matmul import (
+        bfp_decode_matmul, bfp_decode_matmul_plain, bfp_matmul_quantized,
+        bfp_matmul_quantized_plain)
+    from repro_torch.kernels.hif4_quant import hif4_quantize
+
+    w = (torch.randn(k, n, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    xp = torch.randn(mp, k, generator=gen, device=dev).to(torch.bfloat16)
+    for mq, kq, v in ((mp, k, xp), (n, k, w.T.contiguous())):
+        if (mq, kq) not in quantized:
+            quantized.add((mq, kq))
+            quantize_row(dev, gen, arch, mq, kq, v, records, group)
+    ai, asc = hif4_quantize(xp)
+    ws = [w] + [(torch.randn(k, n, generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16) for _ in range(max(1, -(-60 * 2 ** 20 // (k * n * 2))) - 1)]
+    qw = [hif4_quantize(v.T.contiguous()) for v in ws[:2]]
+    y = bfp_matmul_quantized(ai, asc, qw[0][0].T, qw[0][1].T)
+    ref = bfp_matmul_quantized_plain(ai, asc, qw[0][0].T, qw[0][1].T)
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(y), _bits(ref)), f"{arch} bfp_matmul_quantized "
+          f"M={mp} K={k} N={n}: not bitwise its plain version at "
+          f"{int((_bits(y) != _bits(ref)).sum())} outputs")
+    del y, ref
+    bound = _group_matmul_bound_ms(mp, k, n)
+    args = [(ai, asc, wi.T, wsc.T) for wi, wsc in qw]
+    t = timed(bfp_matmul_quantized, args, iters=_iters(bound[0]))
+    plain_ms = cuda_ms(bfp_matmul_quantized_plain, args[:1], iters=1, warmup=1)
+    library_ms = cuda_ms(torch.matmul, [(xp, v) for v in ws[:2]],
+                         iters=_iters(bound[0]))
+    print(f"  {arch} bfp_matmul_quantized M={mp} K={k} N={n} (tensor-core "
+          f"body): bitwise the plain version; {_times(t)} plain_ms="
+          f"{plain_ms:.5f} bound_ms={bound[0]:.6f} ({bound[1]}) library_ms="
+          f"{library_ms:.5f} (torch.matmul bf16)")
+    records.setdefault("bfp_matmul_quantized", {}).setdefault(group, []).append(
+        _row(t, plain_ms, bound, library_ms, arch=arch, form="tensor-core body",
+             shape=f"M={mp} K={k} N={n} f32 out",
+             counted_as=("bfp_matmul_quantized", (mp, k, n))))
+    del args, qw, ai, asc
+    # the decode form
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    if (m, k) not in quantized:
+        quantized.add((m, k))
+        quantize_row(dev, gen, arch, m, k, x, records, group)
+    ai, asc = hif4_quantize(x)
+    y, ref = bfp_decode_matmul(ai, asc, w), bfp_decode_matmul_plain(ai, asc, w)
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(y), _bits(ref)), f"{arch} bfp_decode_matmul M={m} "
+          f"K={k} N={n}: not bitwise its plain version at "
+          f"{int((_bits(y) != _bits(ref)).sum())} outputs")
+    bound = _head_decode_bound_ms(m, k, n)
+    args = [(ai, asc, v) for v in ws]
+    t = timed(bfp_decode_matmul, args, iters=_iters(bound[0]))
+    plain_ms = cuda_ms(bfp_decode_matmul_plain, args[:1], iters=2, warmup=1)
+    library_ms = cuda_ms(torch.matmul, [(x, v) for v in ws],
+                         iters=_iters(bound[0]))
+    print(f"  {arch} bfp_decode_matmul M={m} K={k} N={n} bf16 weight (decode "
+          f"form): bitwise the plain version; {_times(t)} plain_ms="
+          f"{plain_ms:.5f} bound_ms={bound[0]:.6f} ({bound[1]}) library_ms="
+          f"{library_ms:.5f} (torch.matmul bf16); {card_line()}")
+    records.setdefault("bfp_decode_matmul", {}).setdefault(group, []).append(
+        _row(t, plain_ms, bound, library_ms, arch=arch, form="decode form",
+             shape=f"M={m} K={k} N={n} bf16 weight",
+             counted_as=("bfp_decode_matmul", (m, k, n))))
+    del ws, args, w, x, xp, ai, asc
+    torch.cuda.empty_cache()
+
+
+def ssm_kernels(dev, records):
+    """The shapes the SSM and hybrid serves give the kernels: mamba2's six
+    packed linears through kernel 2 (decode form at 8 rows, prefill form at
+    4 096) and zamba2's dense linears through kernel 5 (decode form at 8,
+    tensor-core body at 4 096), kernel 1 at each new activation and w.T
+    shape; every row bitwise its plain version, timed, under "ssm"."""
+    import torch
+    from repro_torch.configs import get_arch
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    m, mp = SSM_BATCH, SSM_BATCH * SSM_PROMPT
+    quantized: set = set()
+    for k, n in SSM_PACKED_SHAPES:
+        packed_shape_rows(dev, gen, "mamba2-1.3b", k, n, m, mp, quantized,
+                          records, group="ssm")
+    for k, n, _ in dense_sites(get_arch("zamba2-2.7b")):
+        dense_shape_rows(dev, gen, "zamba2-2.7b", k, n, m, mp, quantized, records)
+
+
+def ssm_serve(dev, seed, arch, impl, layers, new, records) -> None:
+    """A lockstep serve of ``arch`` at full width (its first ``layers``
+    layers where given): paper-iv under ``impl``, HiF4 KV requested (the
+    family falls back to bf16 with one KVFallbackWarning), batch 8, prompt
+    512, weights drawn on the card from ``seed`` (:func:`family_weights`);
+    exact launches per kernel and per shape; prefill ms, decode ms/step,
+    tokens/s; tokens that vary within every request; the first steps
+    against the plain versions (:func:`check_against_plain`)."""
+    import warnings
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    from repro_torch.models.params import spec_leaves
+    from repro_torch.runtime.serve_loop import (
+        KVFallbackWarning, ServeConfig, kv_format_fallback,
+        packed_weight_bytes, prepare_params_for_serving, serve)
+
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    m, prompt = SSM_BATCH, SSM_PROMPT
+    ctx = serving_setup(cfg, impl=impl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = family_weights(cfg, seed, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sparams = prepare_params_for_serving(raw, cfg, ctx.plan, device=dev)
+    torch.cuda.synchronize()
+    print(f"  {arch} ({cfg.family}, impl {impl}): {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}; weights drawn on the card from seed {seed} "
+          f"in {init_s:.1f} s, prepared in {time.perf_counter() - t0:.1f} s "
+          f"(peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"allocated)")
+    nbytes, nvals = packed_weight_bytes(sparams)
+    # serve prepares what it is given: a packed tree as it is, raw weights
+    # into the offline-QDQ artifact (applying the offline QDQ to an already
+    # QDQ'd tree would quantize those weights twice), as the launcher does
+    served = sparams if nvals else raw
+    del raw
+    shapes = _packed_shapes(sparams)
+    if impl == "packed":
+        check(nvals and nbytes / nvals == 0.5625, "packed weights are not "
+              "0.5625 B/value")
+        print(f"  packed weight residency: {nbytes / 1e6:.1f} MB for {nvals} "
+              f"values (linears per layer {shapes})")
+    else:
+        check(nvals == 0, f"{arch} packed {nvals} values; the reference packs "
+              f"nothing of the hybrid family")
+        dense = sum(t.numel() * t.element_size() for t in _tensor_leaves(sparams))
+        print(f"  no packed weights resident: {dense / 1e6:.1f} MB of dense "
+              f"weights (every 2-D linear quantized per call by kernel 1)")
+    cache_spec = lm.abstract_cache(cfg, m, prompt + new, "hif4")
+    cache_bytes = sum(math.prod(p.shape) * p.dtype.itemsize
+                      for _, p in spec_leaves(cache_spec))
+    print(f"  decode cache at batch {m}, capacity {prompt + new}: "
+          f"{cache_bytes / 1e6:.1f} MB ({', '.join(sorted(cache_spec))}; "
+          f"SSM state f32, conv windows and any KV bf16)")
+    sc = ServeConfig(max_new_tokens=new)
+    check(kv_format_fallback(cfg, ctx.quant, sc), f"{arch}: hif4 KV was not "
+          f"narrowed to bf16")
+    gen = torch.Generator().manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (m, prompt), generator=gen)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", KVFallbackWarning)
+        serve(cfg, served, {"tokens": tokens[:, :64]}, ctx,
+              ServeConfig(max_new_tokens=2), device=dev)      # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    stats: dict = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        toks = serve(cfg, served, {"tokens": tokens}, ctx, sc, device=dev,
+                     stats=stats)
+    torch.cuda.synchronize()
+    launches, per_shape = dict(build.LAUNCHES), dict(build.SHAPE_LAUNCHES)
+    fallbacks = [str(w.message) for w in caught
+                 if issubclass(w.category, KVFallbackWarning)]
+    print(f"  KVFallbackWarning x {len(fallbacks)}: {fallbacks[:1]}")
+    check(len(fallbacks) == 1, f"{arch}: {len(fallbacks)} fallback warnings "
+          f"in one serve call")
+    steps = stats["decode_steps"]
+    print(f"  prefill {stats['prefill_s'] * 1e3:.1f} ms for {m} x {prompt} "
+          f"tokens; decode {stats['decode_s'] * 1e3 / steps:.2f} ms/step "
+          f"({m * steps / stats['decode_s']:.1f} tokens/s over {steps} steps); "
+          f"{card_line()}")
+    if impl == "packed":
+        want, want_shapes = expected_launches(cfg, shapes, steps, m, m * prompt,
+                                              attention_layers=0)
+    else:
+        want, want_shapes = dense_expected(cfg, steps, m, m * prompt)
+    print(f"  launches: {launches} (expected {want})")
+    check(launches == want, f"{arch}: launch counts {launches} != {want}")
+    print(f"  launches per (kernel, shape): {per_shape}")
+    check(per_shape == want_shapes, f"{arch}: launches per shape {per_shape} "
+          f"!= {want_shapes}")
+    for rec in records.values():
+        for r in rec.get("ssm", []):
+            if r["arch"] == arch:
+                kernel, *mkn = r["counted_as"]
+                r["launches"] = (per_shape.get((kernel, tuple(mkn[0])), 0)
+                                 if mkn else launches[kernel])
+    check(tuple(toks.shape) == (m, new), f"tokens shape {tuple(toks.shape)}")
+    rows = {tuple(r) for r in toks.tolist()}
+    print(f"  {len(rows)} distinct token rows of {m}; request 0: "
+          f"{toks[0].tolist()}")
+    check(len(rows) > 1, f"{arch}: every request gave the same tokens")
+    _check_tokens_vary(arch, toks.cpu())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", KVFallbackWarning)
+        check_against_plain(arch, cfg, sparams, tokens.to(dev), ctx, new, toks)
+
+
+def _tensor_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensor_leaves(v)]
+    return [tree]
+
+
+def ssm_e2e(dev, seed):
+    """mamba2 at full width on 2 layers, one set of weights (drawn on the
+    card, copied to the host), paper-iv packed: served on the card through
+    the kernels, on the card through the plain versions (prefill logits
+    bitwise equal, tokens equal), and on the CPU: at most 1% of the prefill
+    logits outside rtol=0.05, atol=0.1, the greedy tokens equal."""
+    import warnings
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve_loop import (
+        KVFallbackWarning, ServeConfig, build_decode_cache,
+        prepare_params_for_serving, serve, serving_ctx)
+
+    t = SSM_E2E
+    cfg = dataclasses.replace(get_arch("mamba2-1.3b"), n_layers=t["layers"])
+    params = _map_tensors(lm.init_params(cfg, seed + 2, device=dev,
+                                         draw_on_device=True), lambda x: x.cpu())
+    gen = torch.Generator().manual_seed(seed + 3)
+    tokens = torch.randint(0, cfg.vocab, (t["batch"], t["prompt"]), generator=gen)
+    sc = ServeConfig(max_new_tokens=t["new"])
+    ctx = serving_setup(cfg)
+    runs = {}
+
+    def run(name, d):
+        sp = prepare_params_for_serving(params, cfg, ctx.plan, device=d)
+        lg, _ = build_decode_cache(cfg, sp, {"tokens": tokens.to(d)},
+                                   serving_ctx(ctx), sc)
+        toks = serve(cfg, sp, {"tokens": tokens}, ctx, sc, device=d)
+        runs[name] = (lg.float().cpu(), toks.cpu())
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", KVFallbackWarning)
+        build.reset_launches()
+        run("card", dev)
+        ran = {k for k, n in build.LAUNCHES.items() if n}
+        check(ran == {"hif4_quantize", "fused_packed_matmul",
+                      "fused_decode_matmul"}, f"the card run launched "
+              f"{build.LAUNCHES}")
+        with plain_versions():
+            run("card-plain", dev)
+        run("cpu", torch.device("cpu"))
+    lg_k, toks_k = runs["card"]
+    lg_p, toks_p = runs["card-plain"]
+    lg_c, toks_c = runs["cpu"]
+    print(f"  card kernels vs card plain versions: prefill logits bitwise "
+          f"{torch.equal(lg_k, lg_p)}, greedy tokens equal "
+          f"{torch.equal(toks_k, toks_p)}")
+    check(torch.equal(lg_k, lg_p), "prefill logits: kernels != plain versions")
+    check(torch.equal(toks_k, toks_p), "tokens: kernels != plain versions")
+    share = _outside_share("card vs cpu", lg_k, lg_c)
+    check(share <= E2E_SHARE["paper-iv"], f"more than "
+          f"{100 * E2E_SHARE['paper-iv']:.0f}% of the prefill logits outside "
+          f"rtol=0.05, atol=0.1 between card and cpu")
+    print(f"  card vs cpu greedy tokens equal {torch.equal(toks_k, toks_c)}; "
+          f"card request 0: {toks_k[0].tolist()}")
+    check(torch.equal(toks_k, toks_c), "greedy tokens: card != cpu")
+
+
+def phase_ssm(dev, seed, records):
+    """The SSM (mamba2-1.3b) and hybrid (zamba2-2.7b) families: kernels 1, 2
+    and 5 at their new shapes against the plain versions; both at full
+    width and depth, lockstep (mamba2 impl packed, zamba2 impl pallas),
+    each against the plain versions for its first steps; mamba2's e2e cut
+    card vs CPU; mamba2's decode step profiled."""
+    import torch
+    from repro_torch.launch import profile
+
+    t0 = time.perf_counter()
+
+    def part(label):
+        print(f"  -- {label} (at {time.perf_counter() - t0:.1f} s)")
+
+    ssm_kernels(dev, records)
+    for arch, impl, layers, new in SSM_SERVES:
+        part(f"{arch} impl {impl}")
+        ssm_serve(dev, seed, arch, impl, layers, new, records)
+        torch.cuda.empty_cache()
+    part("mamba2-1.3b e2e cut")
+    ssm_e2e(dev, seed)
+    torch.cuda.empty_cache()
+    part("python -m repro_torch.launch.profile --arch mamba2-1.3b --steps 4")
+    profile.main(["--arch", "mamba2-1.3b", "--steps", "4", "--top", "8",
+                  "--seed", str(seed)])
+    torch.cuda.empty_cache()
+    part("done")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of repro_torch")
     ap.add_argument("--seed", type=int, default=0,
@@ -2949,7 +3363,7 @@ def main(argv=None) -> int:
                          "phase families holds on seed 0 only")
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (kernels,serve,pallas,"
-                         "e2e,paged,robust,families); default all")
+                         "e2e,paged,robust,families,ssm); default all")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
 
@@ -2984,7 +3398,8 @@ def main(argv=None) -> int:
               ("e2e", lambda: phase_e2e(dev, args.seed)),
               ("paged", lambda: phase_paged(dev, args.seed, records)),
               ("robust", lambda: phase_robust(dev, args.seed, records)),
-              ("families", lambda: phase_families(dev, args.seed, records))]
+              ("families", lambda: phase_families(dev, args.seed, records)),
+              ("ssm", lambda: phase_ssm(dev, args.seed, records))]
     try:
         print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")

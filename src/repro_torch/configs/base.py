@@ -168,8 +168,7 @@ def register_arch(cfg: ArchConfig) -> ArchConfig:
 
 # the reference's architectures whose configs (and families) the port does
 # not carry yet
-NOT_YET_PORTED_ARCHS = frozenset({
-    "mamba2-1.3b", "zamba2-2.7b", "whisper-tiny", "llava-next-34b"})
+NOT_YET_PORTED_ARCHS = frozenset({"whisper-tiny", "llava-next-34b"})
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -199,11 +198,13 @@ def _ensure_loaded() -> None:
     # run (the other architectures come with the families that serve them)
     from repro_torch.configs import (  # noqa: F401
         granite_moe_1b,
+        mamba2_1p3b,
         nemotron_4_340b,
         phi35_moe,
         qwen15_0p5b,
         qwen15_4b,
         qwen3_4b,
+        zamba2_2p7b,
     )
 
     _LOADED = True

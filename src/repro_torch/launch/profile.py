@@ -3,11 +3,14 @@
     python -m repro_torch.launch.profile --arch qwen1.5-0.5b   # on the card
     python -m repro_torch.launch.profile --kv-pages 65         # paged pool
     python -m repro_torch.launch.profile --arch granite-moe-1b-a400m
+    python -m repro_torch.launch.profile --arch mamba2-1.3b    # prompt 512
 
 Builds the serving artifact (policy paper-iv, impl packed, HiF4 KV) from
-random weights (``--seed``), prefills ``--batch`` x ``--prompt-len`` tokens,
-then times ``--steps`` decode steps with the host clock around work that ends
-in a device synchronize, and profiles two more with ``torch.profiler``
+random weights (``--seed``), prefills ``--batch`` x ``--prompt-len`` tokens
+(default 480; 512 for the ssm and hybrid families, whose SSD scan takes a
+prompt that is a multiple of its 256-token chunk), then times ``--steps``
+decode steps with the host clock around work that ends in a device
+synchronize, and profiles two more with ``torch.profiler``
 (CPU + CUDA activities). Prints the step time, the device-busy share of the
 profiled window (the union of the device's activity intervals / wall time,
 :func:`device_activity`) and the top device kernels and host operators.
@@ -86,7 +89,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--prompt-len", type=int, default=480)
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="default 480; 512 for ssm and hybrid (a multiple of "
+                         "the SSD chunk)")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
@@ -96,6 +101,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     cfg = get_arch(args.arch)
+    if args.prompt_len is None:
+        args.prompt_len = 512 if cfg.ssm is not None else 480
+    if args.kv_pages and cfg.family not in lm.KV_FAMILIES:
+        ap.error(f"--kv-pages: the page pool serves the transformer families' "
+                 f"KV cache, not {cfg.family!r}")
     plan = lm.quant_plan(cfg, get_policy("paper-iv", impl="packed",
                                          kv=kvcache.KV_HIF4))
     ctx = ModelCtx(plan=plan)

@@ -232,6 +232,33 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _print_kv_residency(cfg, ctx, args, kv_fmt, cap, device):
+    """The KV residency line (the page pool's with ``--kv-pages``), counted
+    over ``n_layers`` as the reference counts it, and the packed attention
+    line for hif4 KV."""
+    a = cfg.attn
+    per_tok = kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, kv_fmt) * cfg.n_layers
+    bf16_tok = kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, "bf16") * cfg.n_layers
+    if args.kv_pages:
+        pg = kvcache.page_nbytes(a.n_kv_heads, a.d_head, args.kv_page_tokens,
+                                 cfg.n_layers)
+        print(f"kv page pool [{kv_fmt}]: {args.kv_pages} pages x "
+              f"{args.kv_page_tokens} tokens ({pg} B/page) = "
+              f"{args.kv_pages * pg / 2**20:.2f} MiB (whole-slot equivalent: "
+              f"{per_tok * cap * args.batch / 2**20:.2f} MiB for "
+              f"{args.batch} slots x {cap} capacity)")
+    else:
+        total = per_tok * cap * args.batch
+        print(f"kv cache residency [{kv_fmt}]: {per_tok} B/token "
+              f"(bf16: {bf16_tok}) x {cap} capacity x {args.batch} slots "
+              f"= {total / 2**20:.2f} MiB"
+              + (f"  [{bf16_tok / per_tok:.2f}x more slots per byte]"
+                 if kv_fmt == "hif4" else ""))
+    if kv_fmt == "hif4":
+        _print_attention_dispatch(cfg, ctx, cap, device,
+                                  args.kv_page_tokens if args.kv_pages else 0)
+
+
 def _print_journal_residency(directory):
     res = journal_residency(directory)
     print(f"journal residency [{directory}]: {res['journal_bytes']} B journal, "
@@ -283,32 +310,25 @@ def main(argv=None) -> int:
                      guard=guard, journal_dir=args.journal_dir,
                      checkpoint_every=args.checkpoint_every)
     a = cfg.attn
-    kv_fmt = resolve_kv_format(cfg, ctx.quant, sc, verbose=True)
+    # the attention-free family has no KV; the hybrid's falls back to bf16
+    # (a KVFallbackWarning, as the reference prints it)
+    kv_fmt = None if a is None else resolve_kv_format(cfg, ctx.quant, sc,
+                                                        verbose=True)
     if args.kv_pages and kv_fmt != "hif4":
-        print("--kv-pages needs --kv-format hif4 (the page pool stores packed "
-              "HiF4 pages)", file=sys.stderr)
+        print("--kv-pages requires --kv-format hif4 on a KV-cache family (the "
+              "page pool stores packed HiF4 pages)", file=sys.stderr)
+        return 2
+    if ((guard is not None or args.journal_dir is not None)
+            and cfg.family not in lm.KV_FAMILIES):
+        print(f"--guard/--inject-fault/--deadline-s/--journal-dir serve "
+              f"through the request scheduler: continuous batching supports "
+              f"KV-cache families, got {cfg.family!r}", file=sys.stderr)
         return 2
     cap = args.prompt_len + args.new_tokens
-    per_tok = kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, kv_fmt) * cfg.n_layers
-    bf16_tok = kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, "bf16") * cfg.n_layers
-    if args.kv_pages:
-        pg = kvcache.page_nbytes(a.n_kv_heads, a.d_head, args.kv_page_tokens,
-                                 cfg.n_layers)
-        print(f"kv page pool [{kv_fmt}]: {args.kv_pages} pages x "
-              f"{args.kv_page_tokens} tokens ({pg} B/page) = "
-              f"{args.kv_pages * pg / 2**20:.2f} MiB (whole-slot equivalent: "
-              f"{per_tok * cap * args.batch / 2**20:.2f} MiB for "
-              f"{args.batch} slots x {cap} capacity)")
+    if a is None:
+        print("kv cache residency: n/a (attention-free family)")
     else:
-        total = per_tok * cap * args.batch
-        print(f"kv cache residency [{kv_fmt}]: {per_tok} B/token "
-              f"(bf16: {bf16_tok}) x {cap} capacity x {args.batch} slots "
-              f"= {total / 2**20:.2f} MiB"
-              + (f"  [{bf16_tok / per_tok:.2f}x more slots per byte]"
-                 if kv_fmt == "hif4" else ""))
-    if kv_fmt == "hif4":
-        _print_attention_dispatch(cfg, ctx, cap, device,
-                                  args.kv_page_tokens if args.kv_pages else 0)
+        _print_kv_residency(cfg, ctx, args, kv_fmt, cap, device)
 
     gen = torch.Generator().manual_seed(args.seed + 1)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen)

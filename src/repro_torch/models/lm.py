@@ -1,5 +1,5 @@
-"""Language model entry points, the transformer families dense and moe (port
-of ``repro/models/lm.py``).
+"""Language model entry points, the families dense, moe, ssm (mamba2) and
+hybrid (zamba2) (port of ``repro/models/lm.py``).
 
   abstract_params(cfg)                       -> PSpec tree (no allocation)
   init_params(cfg, seed, device=...)         -> materialized params
@@ -13,8 +13,13 @@ of ``repro/models/lm.py``).
 Params and caches are nested dicts of tensors in the reference's layout:
 stacked-layer leaves carry a leading L axis, and the forward walks the layers
 in a Python loop over per-layer views (the reference's ``lax.scan``). The
-decode cache is updated in place; a paged cache carries its page table
-(``pages``) beside the pool, and every layer reads it.
+hybrid's Mamba blocks are stacked twice, (n_super, per, ...), behind one
+shared attention+MLP block applied before each group of ``per`` (its own
+bf16 KV cache per invocation, (n_super, B, S, Hkv, Dh)). The decode cache is
+updated in place; a paged cache carries its page table (``pages``) beside
+the pool, and every layer reads it. Decode caches are ``{"kv", "pos"}``
+(transformer), ``{"layers", "pos"}`` (ssm: conv windows and SSD state per
+layer) and ``{"layers", "kv", "pos"}`` (hybrid).
 """
 from __future__ import annotations
 
@@ -28,12 +33,16 @@ from repro_torch.core import kvcache
 from repro_torch.core.policy import STACKED_COLLECTIONS, QuantPlan, QuantPolicy
 from repro_torch.core.qlinear import PackedW, QuantConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelCtx, dense
 from repro_torch.models.params import PSpec, init_from_specs, map_specs, stack_specs
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the families whose decode cache is an attention KV cache the page pool,
+# the slot scheduler and the HiF4 KV layout serve
+KV_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -55,16 +64,34 @@ def _tblock_specs(cfg: ArchConfig) -> dict:
     return specs
 
 
+def _hybrid_layout(cfg: ArchConfig) -> tuple[int, int]:
+    """(n_super_blocks, mamba_layers_per_super)."""
+    per = cfg.hybrid_attn_every
+    if cfg.n_layers % per:
+        raise ValueError(f"{cfg.n_layers} layers do not split into groups "
+                         f"of {per}")
+    return cfg.n_layers // per, per
+
+
 def abstract_params(cfg: ArchConfig) -> dict:
     _check_family(cfg)
     d, v = cfg.d_model, cfg.vocab
     specs: dict = {
         "embed": PSpec((v, d), ("vocab", "fsdp"), std=0.02),
         "final_norm": tf.norm_specs(cfg),
-        "blocks": stack_specs(_tblock_specs(cfg), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = PSpec((d, v), ("fsdp", "vocab"), std=0.02)
+    if cfg.family == "ssm":
+        specs["blocks"] = stack_specs(mamba2.mamba_specs(cfg), cfg.n_layers)
+    elif cfg.family == "hybrid":
+        ns, per = _hybrid_layout(cfg)
+        specs["blocks"] = stack_specs(stack_specs(mamba2.mamba_specs(cfg), per),
+                                      ns)
+        specs["shared"] = {"norm1": tf.norm_specs(cfg), "attn": tf.attn_specs(cfg),
+                           "norm2": tf.norm_specs(cfg), "mlp": tf.mlp_specs(cfg)}
+    else:
+        specs["blocks"] = stack_specs(_tblock_specs(cfg), cfg.n_layers)
     return specs
 
 
@@ -77,11 +104,28 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device: DeviceLike = None,
 
 def abstract_cache(cfg: ArchConfig, batch: int, seq: int,
                    kv_format: str = "bf16") -> dict:
-    """Cache spec for a decode step with capacity ``seq``."""
+    """Cache spec for a decode step with capacity ``seq``; the SSM state and
+    the hybrid's KV stay bf16 whatever ``kv_format`` asks (the reference's
+    fallback)."""
     _check_family(cfg)
+    pos = PSpec((), (), dtype=torch.int32, init="zeros")
+    if cfg.family == "ssm":
+        return {"layers": stack_specs(mamba2.mamba_cache_specs(cfg, batch),
+                                      cfg.n_layers), "pos": pos}
+    if cfg.family == "hybrid":
+        ns, per = _hybrid_layout(cfg)
+        return {"layers": stack_specs(stack_specs(
+                    mamba2.mamba_cache_specs(cfg, batch), per), ns),
+                "kv": stack_specs(tf.attn_cache_specs(cfg, batch, seq), ns),
+                "pos": pos}
     return {"kv": stack_specs(tf.attn_cache_specs(cfg, batch, seq, kv_format),
-                              cfg.n_layers),
-            "pos": PSpec((), (), dtype=torch.int32, init="zeros")}
+                              cfg.n_layers), "pos": pos}
+
+
+def _check_kv_family(cfg: ArchConfig, what: str) -> None:
+    if cfg.family not in KV_FAMILIES:
+        raise ValueError(f"{what} serves the transformer families' KV cache "
+                         f"{KV_FAMILIES}, got {cfg.family!r}")
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int, kv_format: str = "bf16",
@@ -89,6 +133,7 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, kv_format: str = "bf16",
     """Zero-filled decode cache of capacity ``seq`` with per-slot positions
     (B,), for the slot scheduler (admission overwrites a slot's whole
     capacity, so the fill never reaches a result)."""
+    _check_kv_family(cfg, "init_cache")
     dev = resolve_device(device)
     kv = map_specs(lambda p: torch.zeros(p.shape, dtype=p.dtype, device=dev),
                    abstract_cache(cfg, batch, seq, kv_format)["kv"])
@@ -103,7 +148,7 @@ def init_paged_cache(cfg: ArchConfig, batch: int, n_pages: int,
     ``pages`` (B, max_pages_per_slot) int32 the per-slot page table
     (all-zero rows point at the scratch page), ``pos`` (B,) the per-slot
     token counts."""
-    _check_family(cfg)
+    _check_kv_family(cfg, "the paged pool")
     dev = resolve_device(device)
     a = cfg.attn
     return {
@@ -203,25 +248,129 @@ def _transformer_forward(params, x, cfg, ctx, *, mode, caches=None, pos=None,
     return x, caches
 
 
+def _stack_trees(trees: list) -> dict:
+    """[{key: tensor}] -> {key: stacked tensor}, nested dicts alike."""
+    return {key: (_stack_trees([t[key] for t in trees])
+                  if isinstance(trees[0][key], dict)
+                  else torch.stack([t[key] for t in trees]))
+            for key in trees[0]}
+
+
+# ---------------------------------------------------------------------------
+# SSM-family forward (mamba2)
+# ---------------------------------------------------------------------------
+
+
+def _ssm_forward(params, x, cfg, ctx, *, mode, caches=None):
+    """x (B, S, d). prefill returns the stacked per-layer caches
+    {"conv_x", "conv_bc", "ssd"}; decode advances ``caches`` in place."""
+    bctx = ctx.scoped("blocks")
+    per_layer = []
+    for i in range(cfg.n_layers):
+        p_layer = layer_slice(params["blocks"], i)
+        if mode == "decode":
+            out = mamba2.mamba_step(p_layer, x, layer_slice(caches, i), cfg, bctx)
+        else:
+            out, cache = mamba2.mamba_full(p_layer, x, cfg, bctx,
+                                           return_cache=(mode == "prefill"))
+            per_layer.append(cache)
+        x = x + out
+    if mode == "prefill":
+        return x, _stack_trees(per_layer)
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Hybrid-family forward (zamba2: shared attention block + mamba groups)
+# ---------------------------------------------------------------------------
+
+
+def _hybrid_forward(params, x, cfg, ctx, *, mode, caches=None, pos=None):
+    """x (B, S, d): for each of the ``ns`` groups, the one shared
+    attention+MLP block (its own KV cache per invocation), then the group's
+    ``per`` Mamba blocks. prefill returns {"layers": (ns, per, ...) caches,
+    "kv": (ns, B, S, Hkv, Dh)}; decode advances ``caches`` in place."""
+    shared = params["shared"]
+    sctx = ctx.scoped("shared")
+    bctx = ctx.scoped("blocks")
+    ns, per = _hybrid_layout(cfg)
+
+    def shared_apply(h, kv_cache):
+        hn = tf.norm_apply(shared["norm1"], h, cfg)
+        if mode == "decode":
+            a, new_kv = tf.attn_decode(shared["attn"], hn, kv_cache, pos, cfg,
+                                       sctx)
+        else:
+            a, new_kv = tf.attn_full(shared["attn"], hn, cfg, sctx,
+                                     return_cache=(mode == "prefill"))
+        h = h + a
+        h2 = tf.norm_apply(shared["norm2"], h, cfg)
+        return h + tf.mlp_apply(shared["mlp"], h2, cfg, sctx), new_kv
+
+    kvs, groups = [], []
+    for s in range(ns):
+        p_super = layer_slice(params["blocks"], s)
+        x, kv = shared_apply(x, layer_slice(caches["kv"], s)
+                             if mode == "decode" else None)
+        kvs.append(kv)
+        mcaches = []
+        for j in range(per):
+            p_layer = layer_slice(p_super, j)
+            if mode == "decode":
+                out = mamba2.mamba_step(
+                    p_layer, x, layer_slice(layer_slice(caches["layers"], s), j),
+                    cfg, bctx)
+            else:
+                out, mc = mamba2.mamba_full(p_layer, x, cfg, bctx,
+                                            return_cache=(mode == "prefill"))
+                mcaches.append(mc)
+            x = x + out
+        groups.append(mcaches)
+    if mode == "prefill":
+        return x, {"layers": _stack_trees([_stack_trees(g) for g in groups]),
+                   "kv": _stack_trees(kvs)}
+    return x, caches
+
+
+def _backbone(params, x, cfg, ctx, *, mode, caches=None, pos=None, pages=None):
+    if cfg.family in KV_FAMILIES:
+        return _transformer_forward(params, x, cfg, ctx, mode=mode,
+                                    caches=caches, pos=pos, pages=pages)
+    if pages is not None:
+        raise ValueError(f"the paged KV pool is transformer-only, got "
+                         f"{cfg.family!r}")
+    if cfg.family == "ssm":
+        return _ssm_forward(params, x, cfg, ctx, mode=mode, caches=caches)
+    return _hybrid_forward(params, x, cfg, ctx, mode=mode, caches=caches, pos=pos)
+
+
 def prefill(params: dict, batch: dict, cfg: ArchConfig, ctx: ModelCtx):
     """Process the prompt; return (last-token logits (B, V), decode cache)."""
     _check_family(cfg)
     x = embed_tokens(params, batch["tokens"], cfg, ctx)
-    h, caches = _transformer_forward(params, x, cfg, ctx, mode="prefill")
+    h, caches = _backbone(params, x, cfg, ctx, mode="prefill")
     logits = lm_logits(params, h[:, -1:], cfg, ctx)[:, 0]
+    if cfg.family == "ssm":
+        return logits, {"layers": caches, "pos": x.shape[1]}
+    if cfg.family == "hybrid":
+        return logits, {"layers": caches["layers"], "kv": caches["kv"],
+                        "pos": x.shape[1]}
     return logits, {"kv": caches, "pos": x.shape[1]}
 
 
 def pad_cache(cache: dict, cfg: ArchConfig, capacity: int) -> dict:
     """Grow the prefill KV cache along the token axis to ``capacity``
     (dense leaves (L, B, S, Hkv, Dh) pad axis 2; packed leaves their own
-    layout's token axis). Zero padding is inert under the length mask."""
+    layout's token axis). Zero padding is inert under the length mask. A
+    cache without KV (ssm) is returned as it is."""
     def pad_dense(x):
         s = x.shape[2]
         if s >= capacity:
             return x
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, capacity - s))
 
+    if "kv" not in cache:
+        return cache
     kv = cache["kv"]
     out = dict(cache)
     out["kv"] = {name: (kvcache.pad_tokens(t, capacity) if kvcache.is_packed_kv(t)
@@ -232,8 +381,9 @@ def pad_cache(cache: dict, cfg: ArchConfig, capacity: int) -> dict:
 def quantize_kv_cache(cache: dict, cfg: ArchConfig) -> dict:
     """Convert a prefill KV cache to the HiF4-packed kernel-tile layout
     (one-time; bit-identical to appending the tokens one at a time). Layers
-    are packed one at a time to bound the float32 working set."""
-    _check_family(cfg)
+    are packed one at a time to bound the float32 working set. The ssm and
+    hybrid families have no packed layout (their KV, if any, stays bf16)."""
+    _check_kv_family(cfg, "quantize_kv_cache")
 
     def pack(t):
         per_layer = [kvcache.to_kernel_layout(kvcache.quantize_kv(t[i]))
@@ -251,14 +401,23 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict,
     """token (B,) -> (logits (B, V), cache advanced by one token, in place).
     A paged cache (``pages`` present) keeps its page table."""
     pos = cache["pos"]
-    pages = cache.get("pages")
     x = embed_tokens(params, token[:, None], cfg, ctx)            # (B, 1, d)
-    h, kv = _transformer_forward(params, x, cfg, ctx, mode="decode",
-                                 caches=cache["kv"], pos=pos, pages=pages)
+    if cfg.family == "ssm":
+        h, layers = _backbone(params, x, cfg, ctx, mode="decode",
+                              caches=cache["layers"])
+        new_cache = {"layers": layers, "pos": pos + 1}
+    elif cfg.family == "hybrid":
+        h, new = _backbone(params, x, cfg, ctx, mode="decode", caches=cache,
+                           pos=pos)
+        new_cache = {"layers": new["layers"], "kv": new["kv"], "pos": pos + 1}
+    else:
+        pages = cache.get("pages")
+        h, kv = _backbone(params, x, cfg, ctx, mode="decode",
+                          caches=cache["kv"], pos=pos, pages=pages)
+        new_cache = {"kv": kv, "pos": pos + 1}
+        if pages is not None:
+            new_cache["pages"] = pages
     logits = lm_logits(params, h[:, -1:], cfg, ctx)[:, 0]
-    new_cache = {"kv": kv, "pos": pos + 1}
-    if pages is not None:
-        new_cache["pages"] = pages
     return logits, new_cache
 
 

@@ -88,8 +88,9 @@ def resolve_kv_format(cfg: ArchConfig, quant: QuantConfig,
     if fmt == "hif4" and cfg.family not in ("dense", "vlm", "moe", "audio"):
         if verbose:
             warnings.warn(f"kv_format=hif4 has no packed layout for family "
-                          f"{cfg.family!r}; serving falls back to bf16 KV",
-                          KVFallbackWarning, stacklevel=2)
+                          f"{cfg.family!r} (SSM recurrent state) — serving "
+                          f"falls back to bf16 KV", KVFallbackWarning,
+                          stacklevel=2)
         return "bf16"
     return fmt
 
@@ -259,8 +260,9 @@ def build_decode_cache(cfg: ArchConfig, serving_params: dict, batch: dict,
                        sctx: ModelCtx, serve_cfg: ServeConfig, *,
                        verbose: bool = False):
     """Prefill and return (last-token logits, THE decode cache serve runs):
-    prefill, pack the prefix once when the serve runs hif4 KV, then pad to
-    ``cache_capacity`` (default prompt + max_new_tokens) slots."""
+    prefill, pack the prefix once when the serve runs hif4 KV, then pad its
+    KV, if it has one (not ssm), to ``cache_capacity`` (default prompt +
+    max_new_tokens) slots."""
     kv_fmt = resolve_kv_format(cfg, sctx.quant, serve_cfg, verbose=verbose)
     logits, cache = _prefill(cfg, serving_params, batch, sctx, kv_fmt)
     cap = serve_cfg.cache_capacity or int(cache["pos"]) + serve_cfg.max_new_tokens
@@ -575,7 +577,7 @@ def serve_requests(cfg: ArchConfig, params: dict, requests: Sequence,
     Returns a list of (max_new_tokens,) int32 CPU tensors in submission
     order. ``stats`` (a dict) receives the scheduler's counters.
     """
-    if cfg.family not in ("dense", "vlm", "moe"):
+    if cfg.family not in lm.KV_FAMILIES:
         raise ValueError(f"continuous batching supports KV-cache families, "
                          f"got {cfg.family!r}")
     dev = resolve_device(device)

@@ -123,9 +123,9 @@ def test_not_yet_ported_parts_raise():
                        [torch.zeros(8, dtype=torch.long)], ModelCtx(),
                        ServeConfig(max_new_tokens=2), device="cpu", resume=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_arch("mamba2-1.3b")
+        get_arch("whisper-tiny")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         lm.abstract_params(get_arch("qwen1.5-0.5b").__class__(
-            name="m", family="ssm", n_layers=1, d_model=64, vocab=8))
+            name="m", family="audio", n_layers=1, d_model=64, vocab=8))
     with pytest.raises(ValueError):
         get_format("fp3")

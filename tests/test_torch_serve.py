@@ -221,8 +221,9 @@ def test_launcher_serves_on_cpu():
 
 def test_launcher_refuses_flags_not_yet_ported():
     """The robustness flags are ported; a family the port does not carry
-    yet (an SSM arch) still exits nonzero with "not yet ported"."""
-    out = _launch("--arch", "mamba2-1.3b", "--reduced", "--device", "cpu")
+    yet (the audio encoder-decoder) still exits nonzero with "not yet
+    ported"."""
+    out = _launch("--arch", "whisper-tiny", "--reduced", "--device", "cpu")
     assert out.returncode != 0 and "not yet ported" in out.stderr
 
 
