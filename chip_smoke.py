@@ -122,6 +122,23 @@ Phases (any failure ends the run with a nonzero exit):
              (plain versions, bitwise prefill logits) vs CPU: at most 1% of
              the prefill logits outside rtol=0.05, atol=0.1, tokens equal;
              mamba2's decode step profiled (repro_torch.launch.profile).
+11. encdec — the audio encoder-decoder and the vlm backbone, weights drawn
+             on the card at 5x, paper-iv, impl packed, HiF4 KV (whisper's
+             self and read-only cross caches): kernels 1 and 2 at their new
+             shapes (whisper's K 384 and 1 536 at 12 288 frame rows,
+             llava's K 7 168 and 20 480 at 3 840), bitwise their plain
+             versions, and kernel 3 at whisper's self (33 slots) and cross
+             (1 536 frames) caches and llava's 56 heads on 8, all timed;
+             lockstep serves at batch 8, 32 new tokens, of whisper-tiny at
+             full width and depth (4 encoder and 4 decoder layers, 1 536
+             frames, decoding from BOS) and llava-next-34b at full width on
+             its first 8 of 60 layers (480-token embeds), exact launches per
+             kernel and shape (kernel 3 per cache), tokens that vary, the
+             first 4 steps against the plain versions; whisper at batch 2
+             card (kernels) vs card (plain versions, bitwise prefill
+             logits) vs CPU: at most 1% of the prefill logits outside
+             rtol=0.05, atol=0.1 (init-scale weights, as every e2e cut;
+             the 5x weights read, not bounded), tokens compared.
 
 The last lines are the kernel records as one JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. The script imports
@@ -1712,7 +1729,9 @@ def _check_tokens(label, toks, ref_name, runs, cfg, params, ctx, prompts):
         if not len(idx):
             continue
         step = int(idx[0])
-        top1, top2 = _top2(cfg, params, ctx, prompts[b:b + 1], ref[b, :step],
+        prompt = ({k: v[b:b + 1] for k, v in prompts.items()}
+                  if isinstance(prompts, dict) else prompts[b:b + 1])
+        top1, top2 = _top2(cfg, params, ctx, prompt, ref[b, :step],
                            runs[ref_name][2], plain=ref_name == "card-plain")
         gap = top1 - top2
         print(f"  request {b}: first differing token at step {step}; "
@@ -1723,7 +1742,8 @@ def _check_tokens(label, toks, ref_name, runs, cfg, params, ctx, prompts):
 
 def _top2(cfg, params, ctx, prompt, emitted, device, *, plain: bool):
     """The top two logits of a run at the step after the tokens ``emitted``
-    (token 0 comes from the prefill logits)."""
+    (token 0 comes from the prefill logits); ``prompt`` token ids (1, S) or
+    a prefill batch dict of one row."""
     import torch
     from repro_torch.models import lm
     from repro_torch.runtime.serve_loop import (
@@ -1732,8 +1752,9 @@ def _top2(cfg, params, ctx, prompt, emitted, device, *, plain: bool):
     with plain_versions() if plain else contextlib.nullcontext():
         sp = prepare_params_for_serving(params, cfg, ctx.plan, device=device)
         sctx = serving_ctx(ctx)
+        batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
         logits, cache = build_decode_cache(
-            cfg, sp, {"tokens": prompt.to(device)}, sctx,
+            cfg, sp, {k: v.to(device) for k, v in batch.items()}, sctx,
             ServeConfig(max_new_tokens=len(emitted) + 1))
         for tok in emitted:
             logits, cache = lm.decode_step(
@@ -2470,7 +2491,6 @@ def family_kernels(dev, records):
     import torch.nn.functional as F
     from repro_torch.core import kvcache
     from repro_torch.kernels.fused_attention import (
-        fused_decode_attention, fused_decode_attention_plain,
         fused_paged_decode_attention, fused_paged_decode_attention_plain)
 
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -2483,44 +2503,8 @@ def family_kernels(dev, records):
 
     cpu_gen = torch.Generator().manual_seed(22)
     for arch, hkv, h, d, cap in FAMILY_ATTENTION:
-        caches = [_packed_cache(m, cap, hkv, d, cpu_gen, dev)
-                  for _ in range(L2_ROTATION)]
-        q = (torch.randn(m, h, d, generator=cpu_gen) * 0.5).to(torch.bfloat16
-                                                               ).to(dev)
-        length = torch.tensor([1, 63, 64, 65, cap, cap - 1, 2, cap],
-                              dtype=torch.int32, device=dev)
-        out = fused_decode_attention(q, *caches[0], length, n_kv_heads=hkv,
-                                     d_head=d)
-        ref = fused_decode_attention_plain(q, *caches[0], length, hkv, d)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs()
-        check(bool((err <= 1e-3 + 2 ** -7 * ref.float().abs()).all()),
-              f"fused_decode_attention {arch} Hkv={hkv} H={h} D={d}: max |d| "
-              f"{float(err.max())} beyond rtol=2^-7, atol=1e-3")
-        full = torch.full((m,), cap, dtype=torch.int32, device=dev)
-        args = [(q, pk, pv, full) for pk, pv in caches]
-        t = timed(lambda *a: fused_decode_attention(*a, n_kv_heads=hkv, d_head=d),
-                  args, iters=100)
-        plain_ms = cuda_ms(lambda *a: fused_decode_attention_plain(*a, hkv, d),
-                           args, iters=5)
-        rep = h // hkv
-        dense = [(q[:, :, None], *(kvcache.dequantize_kv(c, hkv, d).transpose(1, 2)
-                                   .repeat_interleave(rep, 1) for c in (pk, pv)))
-                 for pk, pv in caches]
-        library_ms = cuda_ms(F.scaled_dot_product_attention, dense, iters=100)
-        bound_ms = attention_bound_ms(hkv, d, full, None, cap, heads=h)
-        print(f"  fused_decode_attention {arch} B={m} Hkv={hkv} H={h} D={d} "
-              f"S={cap}: max |d| {float(err.max()):.3e} vs plain; {_times(t)} "
-              f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} (bytes) "
-              f"library_ms={library_ms:.5f} (SDPA on the dequantized K/V)")
-        records.setdefault("fused_decode_attention", {}).setdefault(
-            "families", []).append({**t, "plain_ms": plain_ms,
-                                    "bound_ms": bound_ms, "bound_by": "bytes",
-                                    "library_ms": library_ms, "arch": arch,
-                                    "counted_as": ("fused_decode_attention",),
-                                    "launches": 0, "max_abs_err": float(err.max()),
-                                    "shape": f"B={m} Hkv={hkv} H={h} D={d} S={cap}"})
-        del caches, dense, args
+        attention_row(dev, cpu_gen, arch, m, hkv, h, d, cap,
+                      [1, 63, 64, 65, cap, cap - 1, 2, cap], records)
 
     # kernel 4 at granite's layout on the paged phase's ragged table
     hkv, h, d, P = 8, 16, 64, PAGED["page_tokens"]
@@ -2560,8 +2544,57 @@ def family_kernels(dev, records):
                                          f"ragged table"})
 
 
-def _packed_shapes(sparams) -> list:
-    """(K, N) of each packed linear of one layer (a PackedW leaf each)."""
+def attention_row(dev, cpu_gen, arch, m, hkv, h, d, cap, lengths, records,
+                  group="families", label=""):
+    """Kernel 3 on a packed cache of ``cap`` slots at ``lengths`` within
+    rtol 2^-7, atol 1e-3 of its plain version, then timed with every slot
+    full (L2-cold rotation) beside its bound and SDPA on the dequantized
+    K/V; a row under ``group``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import kvcache
+    from repro_torch.kernels.fused_attention import (
+        fused_decode_attention, fused_decode_attention_plain)
+
+    caches = [_packed_cache(m, cap, hkv, d, cpu_gen, dev)
+              for _ in range(L2_ROTATION)]
+    q = (torch.randn(m, h, d, generator=cpu_gen) * 0.5).to(torch.bfloat16).to(dev)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out = fused_decode_attention(q, *caches[0], length, n_kv_heads=hkv, d_head=d)
+    ref = fused_decode_attention_plain(q, *caches[0], length, hkv, d)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    check(bool((err <= 1e-3 + 2 ** -7 * ref.float().abs()).all()),
+          f"fused_decode_attention {arch} Hkv={hkv} H={h} D={d} S={cap}: max "
+          f"|d| {float(err.max())} beyond rtol=2^-7, atol=1e-3")
+    full = torch.full((m,), cap, dtype=torch.int32, device=dev)
+    args = [(q, pk, pv, full) for pk, pv in caches]
+    t = timed(lambda *a: fused_decode_attention(*a, n_kv_heads=hkv, d_head=d),
+              args, iters=100)
+    plain_ms = cuda_ms(lambda *a: fused_decode_attention_plain(*a, hkv, d),
+                       args, iters=5)
+    rep = h // hkv
+    dense = [(q[:, :, None], *(kvcache.dequantize_kv(c, hkv, d).transpose(1, 2)
+                               .repeat_interleave(rep, 1) for c in (pk, pv)))
+             for pk, pv in caches]
+    library_ms = cuda_ms(F.scaled_dot_product_attention, dense, iters=100)
+    bound_ms = attention_bound_ms(hkv, d, full, None, cap, heads=h)
+    print(f"  fused_decode_attention {arch}{label} B={m} Hkv={hkv} H={h} D={d} "
+          f"S={cap}: max |d| {float(err.max()):.3e} vs plain; {_times(t)} "
+          f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} (bytes) "
+          f"library_ms={library_ms:.5f} (SDPA on the dequantized K/V)")
+    records.setdefault("fused_decode_attention", {}).setdefault(
+        group, []).append({**t, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": "bytes", "library_ms": library_ms,
+                           "arch": arch, "counted_as": ("fused_decode_attention",),
+                           "launches": 0, "max_abs_err": float(err.max()),
+                           "shape": f"B={m} Hkv={hkv} H={h} D={d} S={cap}{label}"})
+    del caches, dense, args
+
+
+def _packed_shapes(sparams, collection="blocks") -> list:
+    """(K, N) of each packed linear of one layer (a PackedW leaf each) of a
+    stacked collection."""
     from repro_torch.core.qlinear import PackedW
 
     def walk(node):
@@ -2571,7 +2604,7 @@ def _packed_shapes(sparams) -> list:
             return [s for v in node.values() for s in walk(v)]
         return []
 
-    return walk(sparams["blocks"])
+    return walk(sparams[collection])
 
 
 def expected_launches(cfg, shapes, steps, m, mp, attention_layers=None
@@ -2610,7 +2643,8 @@ def expected_launches(cfg, shapes, steps, m, mp, attention_layers=None
 def family_weights(cfg, seed: int, dev) -> dict:
     """A full-width serve's raw weights, drawn on ``dev``: the blocks (but a
     MoE router, float32; the SSM's f32 A, dt bias and skip), the hybrid's
-    shared block and the embedding at 5x the init's scale, scaled in place,
+    shared block, the audio encoder's blocks and the embedding at 5x the
+    init's scale, scaled in place,
     as :func:`paged_weights` scales them. At the init's scale every request
     repeats one token, and a wrong byte does not show in the tokens."""
     import torch
@@ -2627,22 +2661,23 @@ def family_weights(cfg, seed: int, dev) -> dict:
 
     scale(params["blocks"])
     scale(params.get("shared", {}))
+    scale(params.get("enc_blocks", {}))
     scale(params["embed"])
     return params
 
 
-def greedy_steps(cfg, sparams, tokens, ctx, new, steps):
+def greedy_steps(cfg, sparams, batch, ctx, new, steps):
     """The first ``steps`` greedy tokens (B, steps) of a lockstep serve of
-    ``tokens`` for ``new`` tokens (its cache capacity), and each step's
-    logits (f32, on the host): the serve loop's own prefill and decode
-    steps."""
+    the prefill inputs ``batch`` for ``new`` tokens (its cache capacity),
+    and each step's logits (f32, on the host): the serve loop's own prefill
+    and decode steps."""
     import torch
     from repro_torch.models import lm
     from repro_torch.runtime.serve_loop import (
         ServeConfig, build_decode_cache, serving_ctx)
 
     sctx = serving_ctx(ctx)
-    logits, cache = build_decode_cache(cfg, sparams, {"tokens": tokens}, sctx,
+    logits, cache = build_decode_cache(cfg, sparams, batch, sctx,
                                        ServeConfig(max_new_tokens=new))
     toks, lgs = [], []
     for i in range(steps):
@@ -2653,7 +2688,7 @@ def greedy_steps(cfg, sparams, tokens, ctx, new, steps):
     return torch.stack(toks, dim=1).cpu(), lgs
 
 
-def check_against_plain(arch, cfg, sparams, tokens, ctx, new, served) -> None:
+def check_against_plain(arch, cfg, sparams, batch, ctx, new, served) -> None:
     """The served tokens against the plain versions' on the same weights,
     ``FAMILY_PLAIN_STEPS`` steps: the kernels' prefill logits bitwise the
     plain versions', the kernels' steps the served run's tokens, and where
@@ -2664,8 +2699,8 @@ def check_against_plain(arch, cfg, sparams, tokens, ctx, new, served) -> None:
 
     n = FAMILY_PLAIN_STEPS
     with plain_versions():
-        toks_p, lg_p = greedy_steps(cfg, sparams, tokens, ctx, new, n)
-    toks_k, lg_k = greedy_steps(cfg, sparams, tokens, ctx, new, n)
+        toks_p, lg_p = greedy_steps(cfg, sparams, batch, ctx, new, n)
+    toks_k, lg_k = greedy_steps(cfg, sparams, batch, ctx, new, n)
     check(torch.equal(toks_k, served[:, :n].cpu()), f"{arch}: the kernels' "
           f"first {n} steps differ from the served tokens")
     same = torch.equal(lg_k[0].view(torch.int32), lg_p[0].view(torch.int32))
@@ -2686,26 +2721,34 @@ def check_against_plain(arch, cfg, sparams, tokens, ctx, new, served) -> None:
               f"gap {gap} beyond the tolerance")
 
 
-def family_serve(dev, seed, arch, layers, new, records) -> None:
+def family_serve(dev, seed, arch, layers, new, records, group="families"
+                 ) -> None:
     """A lockstep serve of ``arch`` at full width (its first ``layers``
     layers where given): paper-iv, impl packed, HiF4 KV, batch 8, prompt
-    480, weights drawn on the card from ``seed`` (:func:`family_weights`);
-    exact launches per kernel and per shape; prefill ms, decode ms/step,
-    tokens/s; tokens that vary within every request; the first steps
-    against the plain versions (:func:`check_against_plain`)."""
+    480 (token ids, or the vlm's f32 embeds), or for the audio family
+    ``ENC_FRAMES`` f32 frames (the decoder starts from BOS), weights drawn
+    on the card from ``seed`` (:func:`family_weights`); exact launches per
+    kernel and per shape; prefill ms, decode ms/step, tokens/s; tokens that
+    vary within every request; the first steps against the plain versions
+    (:func:`check_against_plain`). Fills in the launches of the kernel rows
+    under ``group``."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import kvcache
     from repro_torch.core.qlinear import PACK_SLAB_VALUES, PackedW
     from repro_torch.kernels import build
+    from repro_torch.launch.serve import prefill_batch
     from repro_torch.runtime.serve_loop import (
         ServeConfig, packed_weight_bytes, prepare_params_for_serving, serve)
 
     cfg = get_arch(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    m, prompt = FAMILY_BATCH, FAMILY_PROMPT
+    audio = cfg.family == "audio"
+    m, prompt = FAMILY_BATCH, ENC_FRAMES if audio else FAMILY_PROMPT
     ctx = serving_setup(cfg)
+    if audio:
+        ctx = dataclasses.replace(ctx, attn_k_chunk=ENC_K_CHUNK)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     raw = family_weights(cfg, seed, dev)
@@ -2728,7 +2771,9 @@ def family_serve(dev, seed, arch, layers, new, records) -> None:
     sparams = prepare_params_for_serving(raw, cfg, ctx.plan, device=dev)
     del raw
     torch.cuda.synchronize()
-    print(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}; weights "
+    print(f"  {arch}: {cfg.n_layers} layers"
+          + (f" (and {cfg.enc_layers} encoder layers)" if audio else "")
+          + f", d_model {cfg.d_model}; weights "
           f"drawn on the card from seed {seed} in {init_s:.1f} s, prepared in "
           f"{time.perf_counter() - t0:.1f} s (peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated)")
@@ -2741,38 +2786,51 @@ def family_serve(dev, seed, arch, layers, new, records) -> None:
     print(f"  packed weight residency: {nbytes / 1e6:.1f} MB for {nvals} values "
           f"(linears per layer {shapes})" + (
               f"; MoE router and experts unpacked: {dense_bytes / 1e6:.1f} MB"
-              if dense_bytes else ""))
+              if dense_bytes else "") + (
+              f"; encoder linears per layer {_packed_shapes(sparams, 'enc_blocks')}"
+              if audio else ""))
     a = cfg.attn
-    print(f"  kv bytes per token: "
-          f"{kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, 'hif4') * cfg.n_layers}"
-          f" B (bf16: {kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, 'bf16') * cfg.n_layers} B)")
-    gen = torch.Generator().manual_seed(seed + 1)
-    tokens = torch.randint(0, cfg.vocab, (m, prompt), generator=gen)
-    serve(cfg, sparams, {"tokens": tokens[:, :64]}, ctx,
+    per_tok = kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, 'hif4') * cfg.n_layers
+    print(f"  kv bytes per token: {per_tok} B (bf16: "
+          f"{kvcache.kv_bytes_per_token(a.n_kv_heads, a.d_head, 'bf16') * cfg.n_layers}"
+          f" B)" + (f"; the read-only cross cache {per_tok * prompt * m / 1e6:.2f} "
+                    f"MB for {m} x {prompt} frames" if audio else ""))
+    batch = prefill_batch(cfg, m, prompt, seed + 1, dev)
+    serve(cfg, sparams, {k: v[:, :64] for k, v in batch.items()}, ctx,
           ServeConfig(max_new_tokens=2), device=dev)          # warm-up
     torch.cuda.synchronize()
     build.reset_launches()
     stats: dict = {}
-    toks = serve(cfg, sparams, {"tokens": tokens}, ctx,
-                 ServeConfig(max_new_tokens=new), device=dev, stats=stats)
-    torch.cuda.synchronize()
+    with attention_capacities() as caps:
+        toks = serve(cfg, sparams, batch, ctx, ServeConfig(max_new_tokens=new),
+                     device=dev, stats=stats)
+        torch.cuda.synchronize()
     launches, per_shape = dict(build.LAUNCHES), dict(build.SHAPE_LAUNCHES)
     steps = stats["decode_steps"]
+    what = "frames (encoder), BOS (decoder)" if audio else (
+        "embeds" if cfg.embeds_input else "tokens")
     print(f"  prefill {stats['prefill_s'] * 1e3:.1f} ms for {m} x {prompt} "
-          f"tokens; decode {stats['decode_s'] * 1e3 / steps:.2f} ms/step "
+          f"{what}; decode {stats['decode_s'] * 1e3 / steps:.2f} ms/step "
           f"({m * steps / stats['decode_s']:.1f} tokens/s over {steps} steps); "
           f"{card_line()}")
-    want, want_shapes = expected_launches(cfg, shapes, steps, m, m * prompt)
+    if audio:
+        want, want_shapes = encdec_expected(cfg, sparams, steps, m, m * prompt)
+    else:
+        want, want_shapes = expected_launches(cfg, shapes, steps, m, m * prompt)
     print(f"  launches: {launches} (expected {want})")
     check(launches == want, f"{arch}: launch counts {launches} != {want}")
     print(f"  launches per (kernel, (M, K, N)): {per_shape}")
     check(per_shape == want_shapes, f"{arch}: launches per shape {per_shape} "
           f"!= {want_shapes}")
+    print(f"  kernel 3 launches per cache capacity: {caps}")
+    check(sum(caps.values()) == launches["fused_decode_attention"],
+          f"{arch}: kernel 3 calls by capacity {caps} != its launches")
     for rec in records.values():
-        for r in rec.get("families", []):
+        for r in rec.get(group, []):
             if r["arch"] == arch:
                 kernel, *mkn = r["counted_as"]
-                r["launches"] = (per_shape.get((kernel, tuple(mkn[0])), 0)
+                r["launches"] = (caps.get(r["capacity"], 0) if "capacity" in r
+                                 else per_shape.get((kernel, tuple(mkn[0])), 0)
                                  if mkn else launches[kernel])
     check(tuple(toks.shape) == (m, new), f"tokens shape {tuple(toks.shape)}")
     rows = {tuple(r) for r in toks.tolist()}
@@ -2780,7 +2838,29 @@ def family_serve(dev, seed, arch, layers, new, records) -> None:
           f"{toks[0].tolist()}")
     check(len(rows) > 1, f"{arch}: every request gave the same tokens")
     _check_tokens_vary(arch, toks.cpu())
-    check_against_plain(arch, cfg, sparams, tokens.to(dev), ctx, new, toks)
+    check_against_plain(arch, cfg, sparams,
+                        {k: v.to(dev) for k, v in batch.items()}, ctx, new, toks)
+
+
+@contextlib.contextmanager
+def attention_capacities():
+    """Count the engine's kernel 3 calls per cache capacity (the audio
+    decoder's self and cross caches): {capacity: calls}."""
+    from repro_torch.core import engine, kvcache
+
+    seen: dict = {}
+    fused = engine.fused_decode_attention
+
+    def recording(q, k, v, length, **kw):
+        cap = kvcache.seq_capacity(k)
+        seen[cap] = seen.get(cap, 0) + 1
+        return fused(q, k, v, length, **kw)
+
+    engine.fused_decode_attention = recording
+    try:
+        yield seen
+    finally:
+        engine.fused_decode_attention = fused
 
 
 def family_prefix_drops(dev, cfg, sparams, ctx, seed) -> None:
@@ -3257,7 +3337,8 @@ def ssm_serve(dev, seed, arch, impl, layers, new, records) -> None:
     _check_tokens_vary(arch, toks.cpu())
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", KVFallbackWarning)
-        check_against_plain(arch, cfg, sparams, tokens.to(dev), ctx, new, toks)
+        check_against_plain(arch, cfg, sparams, {"tokens": tokens.to(dev)}, ctx,
+                            new, toks)
 
 
 def _tensor_leaves(tree) -> list:
@@ -3356,6 +3437,190 @@ def phase_ssm(dev, seed, records):
     part("done")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the Whisper encoder-decoder and the LLaVA-NeXT backbone
+# ---------------------------------------------------------------------------
+
+# whisper's encoder frames: the reference's ENC_FRAMES_DECODE (1 536; the 30 s
+# window's 1 500 divides no attention chunk), with KV chunks of 512 (the
+# default 1 024 does not divide 1 536)
+ENC_FRAMES, ENC_K_CHUNK = 1536, 512
+# (arch, layers or None for all, new tokens) of the lockstep serves:
+# llava-next-34b at full width on its first 8 of 60 layers (its 60 layers'
+# raw bf16, ~66.9 GB, and their packed copy do not fit the card together)
+ENCDEC_SERVES = (("whisper-tiny", None, 32), ("llava-next-34b", 8, 32))
+# the (K, N) each arch gives kernel 2, and its prefill rows
+ENCDEC_SHAPES = (("whisper-tiny", FAMILY_BATCH * ENC_FRAMES,
+                  ((384, 384), (384, 1536), (1536, 384))),
+                 ("llava-next-34b", FAMILY_BATCH * FAMILY_PROMPT,
+                  ((7168, 7168), (7168, 1024), (7168, 20480), (20480, 7168))))
+# kernel 3's new caches: (arch, Hkv, query heads, d_head, capacity, lengths
+# of the bitwise check, label): whisper's self cache (BOS + 32 new tokens:
+# one tile, ck % 4 != 0) and its read-only cross cache (every slot full);
+# llava's 56 heads on 8 (a group of 7)
+ENCDEC_ATTENTION = (
+    ("whisper-tiny", 6, 6, 64, 33, [1, 2, 17, 32, 33, 33, 5, 9], " self"),
+    ("whisper-tiny", 6, 6, 64, ENC_FRAMES, [ENC_FRAMES] * 8, " cross"),
+    ("llava-next-34b", 8, 56, 128, FAMILY_PROMPT + 32,
+     [1, 63, 64, 65, 512, 511, 2, 480], ""))
+# whisper's e2e cut: full depth, batch 2, 8 new tokens, the init's weights
+# (as every e2e cut); the serve's 5x weights are read too, not bounded
+ENCDEC_E2E = {"batch": 2, "new": 8}
+
+
+def encdec_expected(cfg, sparams, steps, m, mp) -> tuple[dict, dict]:
+    """The launches of an audio lockstep serve: kernel 1, then kernel 2's
+    prefill form, for each encoder linear at the frames' ``mp`` rows and
+    for the cross K and V of each decoder layer (the encoder output,
+    projected once); the decode form for each decoder linear (self q, k, v,
+    o; cross q, o; the MLP's two) on BOS and at each step, ``m`` rows;
+    kernel 3 for the self and the cross cache of each layer and step."""
+    from repro_torch.kernels import build
+
+    a, d, L, E = cfg.attn, cfg.d_model, cfg.n_layers, cfg.enc_layers
+    q, kv = a.n_heads * a.d_head, a.n_kv_heads * a.d_head
+    enc = [(d, q), (d, kv), (d, kv), (q, d), (d, cfg.d_ff), (cfg.d_ff, d)]
+    dec = enc[:4] + [(d, q), (q, d)] + enc[4:]
+    check(sorted(_packed_shapes(sparams, "enc_blocks")) == sorted(enc)
+          and sorted(_packed_shapes(sparams)) == sorted(dec + [(d, kv)] * 2),
+          "the packed linears are not whisper's")
+    want = dict.fromkeys(build.LAUNCHES, 0)
+    per: dict = {}
+
+    def add(kernel, mkn, n):
+        want[kernel] += n
+        if mkn is not None:
+            per[(kernel, mkn)] = per.get((kernel, mkn), 0) + n
+
+    for (k, n), c in [(s, E) for s in enc] + [((d, kv), 2 * L)]:
+        add("hif4_quantize", (mp, k), c)
+        add("fused_packed_matmul", (mp, k, n), c)
+    for k, n in dec:
+        add("fused_decode_matmul", (m, k, n), L * (1 + steps))
+        add("fused_packed_matmul", None, L * (1 + steps))
+    want["fused_decode_attention"] = 2 * L * steps
+    return want, per
+
+
+def encdec_kernels(dev, records):
+    """Kernel 1 at each new activation shape, kernel 2 at whisper's and
+    llava's (K, N) in its decode form at 8 rows and its prefill form at the
+    serve's prefill rows (12 288 frames, 3 840 embeds), each bitwise its
+    plain version, and kernel 3 at the new caches within rtol 2^-7, atol
+    1e-3 of its plain version, all timed; rows under "encdec"."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    quantized: set = set()
+    for arch, mp, shapes in ENCDEC_SHAPES:
+        for k, n in shapes:
+            packed_shape_rows(dev, gen, arch, k, n, FAMILY_BATCH, mp, quantized,
+                              records, group="encdec")
+    cpu_gen = torch.Generator().manual_seed(25)
+    for arch, hkv, h, d, cap, lengths, label in ENCDEC_ATTENTION:
+        attention_row(dev, cpu_gen, arch, FAMILY_BATCH, hkv, h, d, cap, lengths,
+                      records, group="encdec", label=label)
+        if arch == "whisper-tiny":      # its serve's launches split by cache
+            records["fused_decode_attention"]["encdec"][-1]["capacity"] = cap
+
+
+def encdec_e2e(dev, seed):
+    """whisper-tiny at full width and depth, one set of weights at the init's
+    scale (drawn on the card, copied to the host) and frames at batch 2:
+    served on the card through the kernels, on the card through the plain
+    versions (prefill logits bitwise equal), and on the CPU: at most 1% of
+    the prefill logits outside rtol=0.05, atol=0.1; the greedy tokens
+    compared. Then the prefill logits card vs CPU at the serve's 5x weights,
+    printed and not bounded: there every attention score is 25x the init's,
+    the encoder's softmax over 1 536 frames picks its key by the last bit
+    of a float op, and PyTorch's CPU and CUDA ops differ in that bit."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import prefill_batch
+    from repro_torch.runtime.serve_loop import (
+        ServeConfig, build_decode_cache, prepare_params_for_serving, serve,
+        serving_ctx)
+
+    from repro_torch.models import lm
+
+    t = ENCDEC_E2E
+    cfg = get_arch("whisper-tiny")
+    params = _map_tensors(lm.init_params(cfg, seed + 2, device=dev,
+                                         draw_on_device=True), lambda x: x.cpu())
+    frames = prefill_batch(cfg, t["batch"], ENC_FRAMES, seed + 3, dev)
+    frames = {k: v.cpu() for k, v in frames.items()}
+    sc = ServeConfig(max_new_tokens=t["new"])
+    ctx = dataclasses.replace(serving_setup(cfg), attn_k_chunk=ENC_K_CHUNK)
+    runs = {}
+
+    def run(name, d):
+        sp = prepare_params_for_serving(params, cfg, ctx.plan, device=d)
+        batch = {k: v.to(d) for k, v in frames.items()}
+        lg, _ = build_decode_cache(cfg, sp, batch, serving_ctx(ctx), sc)
+        toks = serve(cfg, sp, batch, ctx, sc, device=d)
+        runs[name] = (lg.float().cpu(), toks.cpu(), d)
+
+    build.reset_launches()
+    run("card", dev)
+    ran = {k for k, n in build.LAUNCHES.items() if n}
+    check(ran == {"hif4_quantize", "fused_packed_matmul", "fused_decode_matmul",
+                  "fused_decode_attention"}, f"the card run launched "
+          f"{build.LAUNCHES}")
+    with plain_versions():
+        run("card-plain", dev)
+    run("cpu", torch.device("cpu"))
+    lg_k, toks_k, _ = runs["card"]
+    lg_p, toks_p, _ = runs["card-plain"]
+    lg_c, toks_c, _ = runs["cpu"]
+    print(f"  card kernels vs card plain versions: prefill logits bitwise "
+          f"{torch.equal(lg_k, lg_p)}, greedy tokens equal "
+          f"{torch.equal(toks_k, toks_p)}")
+    check(torch.equal(lg_k, lg_p), "prefill logits: kernels != plain versions")
+    _check_tokens("card kernels vs card plain", toks_k, "card-plain", runs, cfg,
+                  params, ctx, frames)
+    share = _outside_share("card vs cpu", lg_k, lg_c)
+    check(share <= E2E_SHARE["paper-iv"], f"more than "
+          f"{100 * E2E_SHARE['paper-iv']:.0f}% of the prefill logits outside "
+          f"rtol=0.05, atol=0.1 between card and cpu")
+    print(f"  card request 0: {toks_k[0].tolist()}; cpu request 0: "
+          f"{toks_c[0].tolist()}")
+    _check_tokens("card vs cpu", toks_k, "cpu", runs, cfg, params, ctx, frames)
+    scaled = _map_tensors(family_weights(cfg, seed + 2, dev), lambda x: x.cpu())
+    logits = []
+    for d in (dev, torch.device("cpu")):
+        sp = prepare_params_for_serving(scaled, cfg, ctx.plan, device=d)
+        logits.append(build_decode_cache(
+            cfg, sp, {k: v.to(d) for k, v in frames.items()}, serving_ctx(ctx),
+            sc)[0].float().cpu())
+    _outside_share("card vs cpu at the serve's 5x weights (not bounded)",
+                   *logits)
+
+
+def phase_encdec(dev, seed, records):
+    """The audio encoder-decoder (whisper-tiny) and the vlm (llava-next-34b):
+    kernels 1-3 at their new shapes against the plain versions; whisper at
+    full width and depth on 1 536 frames and llava at full width on its
+    first 8 of 60 layers on 480-token embeds, lockstep, each against the
+    plain versions for its first steps; whisper's e2e cut card vs CPU."""
+    import torch
+
+    t0 = time.perf_counter()
+
+    def part(label):
+        print(f"  -- {label} (at {time.perf_counter() - t0:.1f} s)")
+
+    encdec_kernels(dev, records)
+    for arch, layers, new in ENCDEC_SERVES:
+        part(arch)
+        family_serve(dev, seed, arch, layers, new, records, group="encdec")
+        torch.cuda.empty_cache()
+    part("whisper-tiny e2e cut")
+    encdec_e2e(dev, seed)
+    torch.cuda.empty_cache()
+    part("done")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of repro_torch")
     ap.add_argument("--seed", type=int, default=0,
@@ -3363,7 +3628,7 @@ def main(argv=None) -> int:
                          "phase families holds on seed 0 only")
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (kernels,serve,pallas,"
-                         "e2e,paged,robust,families,ssm); default all")
+                         "e2e,paged,robust,families,ssm,encdec); default all")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
 
@@ -3399,7 +3664,8 @@ def main(argv=None) -> int:
               ("paged", lambda: phase_paged(dev, args.seed, records)),
               ("robust", lambda: phase_robust(dev, args.seed, records)),
               ("families", lambda: phase_families(dev, args.seed, records)),
-              ("ssm", lambda: phase_ssm(dev, args.seed, records))]
+              ("ssm", lambda: phase_ssm(dev, args.seed, records)),
+              ("encdec", lambda: phase_encdec(dev, args.seed, records))]
     try:
         print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")

@@ -166,16 +166,8 @@ def register_arch(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-# the reference's architectures whose configs (and families) the port does
-# not carry yet
-NOT_YET_PORTED_ARCHS = frozenset({"whisper-tiny", "llava-next-34b"})
-
-
 def get_arch(name: str) -> ArchConfig:
     _ensure_loaded()
-    if name in NOT_YET_PORTED_ARCHS:
-        raise NotImplementedError(f"arch {name!r} is not yet ported to "
-                                  f"repro_torch (have {sorted(_ARCHES)})")
     try:
         return _ARCHES[name]
     except KeyError:
@@ -194,16 +186,17 @@ def _ensure_loaded() -> None:
     global _LOADED
     if _LOADED:
         return
-    # import every ported config module once so registration side effects
-    # run (the other architectures come with the families that serve them)
+    # import every config module once so registration side effects run
     from repro_torch.configs import (  # noqa: F401
         granite_moe_1b,
+        llava_next_34b,
         mamba2_1p3b,
         nemotron_4_340b,
         phi35_moe,
         qwen15_0p5b,
         qwen15_4b,
         qwen3_4b,
+        whisper_tiny,
         zamba2_2p7b,
     )
 

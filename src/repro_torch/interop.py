@@ -68,10 +68,11 @@ def params_from_jax(tree, device: DeviceLike = None):
 def cache_from_jax(cache: dict, device: DeviceLike = None) -> dict:
     """A reference decode cache -> the port's, same bytes: contiguous
     {"kv": ..., "pos": ...}, paged {"kv": page pool (L, NP, F, P) leaves,
-    "pages": (B, max_pages) int32 table, "pos": (B,)}, or the SSM and
+    "pages": (B, max_pages) int32 table, "pos": (B,)}, the SSM and
     hybrid families' {"layers": conv windows and SSD state, "kv"
-    (hybrid), "pos"}. A lockstep position becomes a Python int, a per-slot
-    one an int32 tensor."""
+    (hybrid), "pos"}, or the audio decoder's {"self", "cross", "pos"}. A
+    lockstep position becomes a Python int, a per-slot one an int32
+    tensor."""
     out = params_from_jax({k: v for k, v in cache.items() if k != "pos"}, device)
     pos = np.asarray(cache["pos"])
     out["pos"] = int(pos) if pos.ndim == 0 else tensor_from_numpy(pos, device)

@@ -25,8 +25,12 @@ for them).
 
 Prints the same residency, plan and dispatch lines as the JAX launcher
 (``repro.launch.serve``), then one line of tokens per request. Weights are
-random, made from ``--seed``; prompts too. ``--kv-pages N`` serves the
-requests through the paged HiF4 pool scheduler and prints its counters.
+random, made from ``--seed``; prompts too: token ids, or for the families
+whose frontend is a stub (the reference's too) f32 normals of shape (batch,
+prompt_len, d_model), LLaVA's patch embeddings (``embeds``) or whisper's
+encoder frames (``frames``), drawn on the chosen device. ``--kv-pages N``
+serves the requests through the paged HiF4 pool scheduler and prints its
+counters.
 
 ``--guard`` arms the health sentinels (NaN/Inf logits flag, per-chunk
 0xFF-meta and page-checksum audits, quarantine + qdq/bf16 fallback retry)
@@ -38,7 +42,8 @@ fault (both imply ``--guard``), e.g.
 with ``--checkpoint-every N`` a pool checkpoint every N chunks); after a
 crash, including an injected ``crash_*`` fault, ``--resume`` recovers from
 DIR and prints the recovery report. These route serving through the
-request scheduler::
+request scheduler, which serves token prompts only (the launcher refuses
+them for embeds and frames, with the reference's reasons)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --reduced --device cpu --batch 2 --prompt-len 8 --new-tokens 6 \
@@ -111,12 +116,13 @@ def _print_plan(plan, serving_params):
 
 
 def _packed_leaves(tree) -> list:
-    """The PackedW leaves, per-layer slices of the stacked ones."""
+    """The PackedW leaves in the reference's pytree order (sorted keys),
+    per-layer slices of the stacked ones."""
     if isinstance(tree, PackedW):
         return [tree.layer(0) if tree.codes.ndim > (2 if tree.kernel_layout
                                                     else 3) else tree]
     if isinstance(tree, dict):
-        return [pw for v in tree.values() for pw in _packed_leaves(v)]
+        return [pw for k in sorted(tree) for pw in _packed_leaves(tree[k])]
     return []
 
 
@@ -183,6 +189,20 @@ def _print_attention_dispatch(cfg, ctx, capacity, device, page_tokens=0):
     print(f"packed attention: {'fused' if info['fused'] else 'plain'} "
           f"[{info['execution']}] {info['route']}, kv tile {info['block_kv']} "
           f"of {where}")
+
+
+def prefill_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
+    """The prefill inputs the family's serve takes: ``frames`` (audio) or
+    ``embeds`` (vlm), f32 normals (batch, prompt_len, d_model) drawn on
+    ``device``; else token ids (batch, prompt_len), drawn on the host."""
+    if cfg.family == "audio" or cfg.embeds_input:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn(batch, prompt_len, cfg.d_model, generator=gen,
+                        device=device)
+        return {"frames" if cfg.family == "audio" else "embeds": x}
+    gen = torch.Generator().manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
+                                    generator=gen)}
 
 
 def parse_args(argv=None):
@@ -270,7 +290,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     try:
         cfg = get_arch(args.arch)
-    except NotImplementedError as e:
+    except ValueError as e:                     # an unknown arch
         print(e, file=sys.stderr)
         return 2
     if args.reduced:
@@ -314,12 +334,19 @@ def main(argv=None) -> int:
     # (a KVFallbackWarning, as the reference prints it)
     kv_fmt = None if a is None else resolve_kv_format(cfg, ctx.quant, sc,
                                                         verbose=True)
+    scheduled = guard is not None or args.journal_dir is not None
+    if (args.kv_pages or scheduled) and cfg.embeds_input:
+        print("--kv-pages serves token requests (dense/vlm-embeds not "
+              "supported by the paged scheduler entry)" if args.kv_pages else
+              "--guard/--inject-fault/--journal-dir serve token requests "
+              "through the request scheduler (dense/vlm-embeds not supported)",
+              file=sys.stderr)
+        return 2
     if args.kv_pages and kv_fmt != "hif4":
         print("--kv-pages requires --kv-format hif4 on a KV-cache family (the "
               "page pool stores packed HiF4 pages)", file=sys.stderr)
         return 2
-    if ((guard is not None or args.journal_dir is not None)
-            and cfg.family not in lm.KV_FAMILIES):
+    if scheduled and cfg.family not in lm.KV_FAMILIES:
         print(f"--guard/--inject-fault/--deadline-s/--journal-dir serve "
               f"through the request scheduler: continuous batching supports "
               f"KV-cache families, got {cfg.family!r}", file=sys.stderr)
@@ -330,16 +357,15 @@ def main(argv=None) -> int:
     else:
         _print_kv_residency(cfg, ctx, args, kv_fmt, cap, device)
 
-    gen = torch.Generator().manual_seed(args.seed + 1)
-    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen)
+    batch = prefill_batch(cfg, args.batch, args.prompt_len, args.seed + 1, device)
     sparams = serving_params if nvals else params
     stats = None
     try:
-        if args.kv_pages or guard is not None or args.journal_dir is not None:
+        if args.kv_pages or scheduled:
             # paged, guarded or journaled serving is per request: the
             # request scheduler (paged with --kv-pages)
             stats = {}
-            res = serve_requests(cfg, sparams, list(tokens), ctx, sc,
+            res = serve_requests(cfg, sparams, list(batch["tokens"]), ctx, sc,
                                  slots=args.batch, stats=stats, device=device,
                                  injector=injector, resume=args.resume)
             if args.kv_pages:
@@ -350,7 +376,7 @@ def main(argv=None) -> int:
                       f"{stats['peak_live_pages']}/{args.kv_pages} pages live")
             toks = torch.stack(res)
         else:
-            toks = serve(cfg, sparams, {"tokens": tokens}, ctx, sc, device=device)
+            toks = serve(cfg, sparams, batch, ctx, sc, device=device)
     except faults.SimulatedCrash as crash:
         # the injected process kill: report what the journal holds and exit
         # cleanly, so a --resume run can follow

@@ -29,12 +29,15 @@ def _chunks(n: int, c: int) -> int:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
                     chunking: AttnChunking = AttnChunking()) -> torch.Tensor:
-    """Causal attention (prefill: query i sees keys 0..i). q (B, Sq, H, D),
-    k/v (B, Sk, Hkv, D) -> (B, Sq, H, D) in q.dtype.
+    """Chunked attention. q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H,
+    D) in q.dtype. ``causal`` (prefill self-attention): query i sees keys
+    0..i; otherwise (the audio encoder, the decoder's cross-attention) every
+    query sees all Sk keys, and Sq may differ from Sk.
 
     Query chunks run in a loop; for each, the KV chunks that hold any
-    visible key (causal early exit) fold into the online softmax.
+    visible key (all of them unless causal) fold into the online softmax.
     """
     B, Sq, H, D = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -57,13 +60,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = torch.full((B, Hkv, rep, cq), NEG_INF, device=dev)
         l = torch.zeros((B, Hkv, rep, cq), device=dev)
         acc = torch.zeros((B, Hkv, rep, cq, D), device=dev)
-        n_live = min(((qi + 1) * cq - 1) // ck + 1, nk)
+        n_live = min(((qi + 1) * cq - 1) // ck + 1, nk) if causal else nk
         for ki in range(n_live):
             kblk, vblk = kc[:, ki], vc[:, ki]
             s = torch.einsum("bqgrd,bkgd->bgrqk", qblk,
                              kblk.to(torch.float32)) * scale
-            mask = q_pos[qi][:, None] >= k_pos[ki][None, :]
-            s = torch.where(mask, s, NEG_INF)
+            if causal:
+                mask = q_pos[qi][:, None] >= k_pos[ki][None, :]
+                s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, torch.amax(s, dim=-1))
             p = torch.exp(s - m_new[..., None])
             correction = torch.exp(m - m_new)

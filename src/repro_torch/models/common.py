@@ -61,6 +61,20 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
     return (y * weight.to(torch.float32)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    """Computed in f32 (the mean, then the mean squared deviation, as
+    ``jnp.var``), cast back."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * weight.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return y.to(x.dtype)
+
+
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
                                          device=device) / d_head))

@@ -1,5 +1,7 @@
-"""Language model entry points, the families dense, moe, ssm (mamba2) and
-hybrid (zamba2) (port of ``repro/models/lm.py``).
+"""Language model entry points, every family of the reference: dense and
+vlm (LLaVA's backbone on precomputed patch embeddings), moe, ssm (mamba2),
+hybrid (zamba2) and audio (whisper's encoder-decoder on precomputed frame
+embeddings) (port of ``repro/models/lm.py``, forward only).
 
   abstract_params(cfg)                       -> PSpec tree (no allocation)
   init_params(cfg, seed, device=...)         -> materialized params
@@ -15,11 +17,14 @@ stacked-layer leaves carry a leading L axis, and the forward walks the layers
 in a Python loop over per-layer views (the reference's ``lax.scan``). The
 hybrid's Mamba blocks are stacked twice, (n_super, per, ...), behind one
 shared attention+MLP block applied before each group of ``per`` (its own
-bf16 KV cache per invocation, (n_super, B, S, Hkv, Dh)). The decode cache is
-updated in place; a paged cache carries its page table (``pages``) beside
-the pool, and every layer reads it. Decode caches are ``{"kv", "pos"}``
-(transformer), ``{"layers", "pos"}`` (ssm: conv windows and SSD state per
-layer) and ``{"layers", "kv", "pos"}`` (hybrid).
+bf16 KV cache per invocation, (n_super, B, S, Hkv, Dh)). The audio family
+runs its encoder once in the prefill, projects the encoder output into each
+decoder layer's read-only cross K/V, and decodes from BOS with sinusoidal
+positions (no RoPE). The decode cache is updated in place; a paged cache
+carries its page table (``pages``) beside the pool, and every layer reads
+it. Decode caches are ``{"kv", "pos"}`` (transformer), ``{"layers", "pos"}``
+(ssm: conv windows and SSD state per layer), ``{"layers", "kv", "pos"}``
+(hybrid) and ``{"self", "cross", "pos"}`` (audio).
 """
 from __future__ import annotations
 
@@ -36,20 +41,37 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models.attention import AttnChunking, flash_attention
 from repro_torch.models.common import ModelCtx, dense
 from repro_torch.models.params import PSpec, init_from_specs, map_specs, stack_specs
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 # the families whose decode cache is an attention KV cache the page pool,
 # the slot scheduler and the HiF4 KV layout serve
 KV_FAMILIES = ("dense", "vlm", "moe")
+# the families whose attention caches take the packed HiF4 layout: the
+# transformer families' "kv", the audio decoder's "self" and "cross"
+PACKED_KV_FAMILIES = KV_FAMILIES + ("audio",)
+# nominal encoder length backing an audio decode step (the reference's)
+ENC_FRAMES_DECODE = 1536
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported to repro_torch "
-            f"(have {PORTED_FAMILIES})")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(...,) int positions -> (..., d) f32 sinusoidal embeddings. The
+    division is tensor by tensor: by a Python number CUDA multiplies by its
+    reciprocal, which rounds twice."""
+    half = d // 2
+    dev = positions.device
+    ramp = torch.arange(half, dtype=torch.float32, device=dev)
+    freqs = torch.exp(-math.log(10000.0) * ramp
+                      / torch.tensor(float(half), device=dev))
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _tblock_specs(cfg: ArchConfig) -> dict:
@@ -62,6 +84,18 @@ def _tblock_specs(cfg: ArchConfig) -> dict:
     else:
         specs["mlp"] = tf.mlp_specs(cfg)
     return specs
+
+
+def _dec_block_specs(cfg: ArchConfig) -> dict:
+    """Audio decoder block: self-attention, cross-attention, MLP."""
+    return {"norm1": tf.norm_specs(cfg), "attn": tf.attn_specs(cfg),
+            "norm_x": tf.norm_specs(cfg), "xattn": tf.attn_specs(cfg),
+            "norm2": tf.norm_specs(cfg), "mlp": tf.mlp_specs(cfg)}
+
+
+def _enc_block_specs(cfg: ArchConfig) -> dict:
+    return {"norm1": tf.norm_specs(cfg), "attn": tf.attn_specs(cfg),
+            "norm2": tf.norm_specs(cfg), "mlp": tf.mlp_specs(cfg)}
 
 
 def _hybrid_layout(cfg: ArchConfig) -> tuple[int, int]:
@@ -90,6 +124,10 @@ def abstract_params(cfg: ArchConfig) -> dict:
                                       ns)
         specs["shared"] = {"norm1": tf.norm_specs(cfg), "attn": tf.attn_specs(cfg),
                            "norm2": tf.norm_specs(cfg), "mlp": tf.mlp_specs(cfg)}
+    elif cfg.family == "audio":
+        specs["enc_blocks"] = stack_specs(_enc_block_specs(cfg), cfg.enc_layers)
+        specs["enc_norm"] = tf.norm_specs(cfg)
+        specs["blocks"] = stack_specs(_dec_block_specs(cfg), cfg.n_layers)
     else:
         specs["blocks"] = stack_specs(_tblock_specs(cfg), cfg.n_layers)
     return specs
@@ -106,7 +144,8 @@ def abstract_cache(cfg: ArchConfig, batch: int, seq: int,
                    kv_format: str = "bf16") -> dict:
     """Cache spec for a decode step with capacity ``seq``; the SSM state and
     the hybrid's KV stay bf16 whatever ``kv_format`` asks (the reference's
-    fallback)."""
+    fallback). The audio decoder's "cross" cache holds
+    ``ENC_FRAMES_DECODE`` encoder frames."""
     _check_family(cfg)
     pos = PSpec((), (), dtype=torch.int32, init="zeros")
     if cfg.family == "ssm":
@@ -117,6 +156,12 @@ def abstract_cache(cfg: ArchConfig, batch: int, seq: int,
         return {"layers": stack_specs(stack_specs(
                     mamba2.mamba_cache_specs(cfg, batch), per), ns),
                 "kv": stack_specs(tf.attn_cache_specs(cfg, batch, seq), ns),
+                "pos": pos}
+    if cfg.family == "audio":
+        return {"self": stack_specs(tf.attn_cache_specs(cfg, batch, seq,
+                                                        kv_format), cfg.n_layers),
+                "cross": stack_specs(tf.attn_cache_specs(
+                    cfg, batch, ENC_FRAMES_DECODE, kv_format), cfg.n_layers),
                 "pos": pos}
     return {"kv": stack_specs(tf.attn_cache_specs(cfg, batch, seq, kv_format),
                               cfg.n_layers), "pos": pos}
@@ -332,7 +377,94 @@ def _hybrid_forward(params, x, cfg, ctx, *, mode, caches=None, pos=None):
     return x, caches
 
 
-def _backbone(params, x, cfg, ctx, *, mode, caches=None, pos=None, pages=None):
+# ---------------------------------------------------------------------------
+# Audio encoder-decoder forward (whisper)
+# ---------------------------------------------------------------------------
+
+
+def _encode(params, frames, cfg, ctx):
+    """frames (B, S_enc, d): precomputed frame embeddings (the stub
+    frontend), plus sinusoidal positions, through the non-causal encoder
+    blocks and the encoder's final norm."""
+    S, d = frames.shape[1], frames.shape[2]
+    x = (frames.to(ctx.compute_dtype)
+         + sinusoid(torch.arange(S, device=frames.device), d).to(ctx.compute_dtype))
+    ectx = ctx.scoped("enc_blocks")
+    for i in range(cfg.enc_layers):
+        p = layer_slice(params["enc_blocks"], i)
+        h = tf.norm_apply(p["norm1"], x, cfg)
+        a, _ = tf.attn_full(p["attn"], h, cfg, ectx, causal=False, use_rope=False)
+        x = x + a
+        h2 = tf.norm_apply(p["norm2"], x, cfg)
+        x = x + tf.mlp_apply(p["mlp"], h2, cfg, ectx)
+    return tf.norm_apply(params["enc_norm"], x, cfg)
+
+
+def _cross_kv(params, enc, cfg, ctx) -> dict:
+    """The encoder output projected into each decoder layer's cross K/V:
+    {"k", "v"} (L, B, S_enc, Hkv, Dh)."""
+    bctx = ctx.scoped("blocks")
+    kvs = [tf.proj_kv(layer_slice(params["blocks"], i)["xattn"], enc, cfg, bctx,
+                      "xattn") for i in range(cfg.n_layers)]
+    return {"k": torch.stack([k for k, _ in kvs]),
+            "v": torch.stack([v for _, v in kvs])}
+
+
+def _dec_block_apply(p, x, cfg, ctx, *, mode, self_cache, cross_kv, pos):
+    h = tf.norm_apply(p["norm1"], x, cfg)
+    if mode == "decode":
+        a, new_self = tf.attn_decode(p["attn"], h, self_cache, pos, cfg, ctx,
+                                     use_rope=False)
+    else:
+        a, new_self = tf.attn_full(p["attn"], h, cfg, ctx, use_rope=False,
+                                   return_cache=(mode == "prefill"))
+    x = x + a
+    hx = tf.norm_apply(p["norm_x"], x, cfg)
+    if mode == "decode":
+        a, _ = tf.attn_decode(p["xattn"], hx, cross_kv, pos, cfg, ctx,
+                              use_rope=False, cross=True, site="xattn")
+    else:
+        # the whole decoder sequence against the encoder's K/V
+        S, Sk = hx.shape[1], cross_kv["k"].shape[1]
+        q = tf.proj_q(p["xattn"], hx, cfg, ctx, "xattn")
+        o = flash_attention(q, cross_kv["k"], cross_kv["v"], causal=False,
+                            chunking=AttnChunking(
+                                q_chunk=min(ctx.attn_q_chunk, S),
+                                k_chunk=min(ctx.attn_k_chunk, Sk)))
+        a = tf.out_proj(p["xattn"], o, cfg, ctx, "xattn")
+    x = x + a
+    h2 = tf.norm_apply(p["norm2"], x, cfg)
+    return x + tf.mlp_apply(p["mlp"], h2, cfg, ctx), new_self
+
+
+def _audio_forward(params, x, cfg, ctx, *, mode, frames=None, caches=None,
+                   pos=None):
+    """x (B, S_dec, d) the embedded decoder input. prefill encodes
+    ``frames`` and returns {"self": (L, B, S_dec, Hkv, Dh) K/V, "cross":
+    (L, B, S_enc, Hkv, Dh) K/V}; decode appends to ``caches["self"]`` in
+    place and reads ``caches["cross"]``."""
+    bctx = ctx.scoped("blocks")
+    if mode == "decode":
+        for i in range(cfg.n_layers):
+            x, _ = _dec_block_apply(
+                layer_slice(params["blocks"], i), x, cfg, bctx, mode=mode,
+                self_cache=layer_slice(caches["self"], i),
+                cross_kv=layer_slice(caches["cross"], i), pos=pos)
+        return x, caches
+    cross = _cross_kv(params, _encode(params, frames, cfg, ctx), cfg, ctx)
+    selfs = []
+    for i in range(cfg.n_layers):
+        x, kv = _dec_block_apply(layer_slice(params["blocks"], i), x, cfg, bctx,
+                                 mode=mode, self_cache=None,
+                                 cross_kv=layer_slice(cross, i), pos=None)
+        selfs.append(kv)
+    if mode == "prefill":
+        return x, {"self": _stack_trees(selfs), "cross": cross}
+    return x, None
+
+
+def _backbone(params, x, cfg, ctx, *, mode, caches=None, pos=None, pages=None,
+              frames=None):
     if cfg.family in KV_FAMILIES:
         return _transformer_forward(params, x, cfg, ctx, mode=mode,
                                     caches=caches, pos=pos, pages=pages)
@@ -341,49 +473,74 @@ def _backbone(params, x, cfg, ctx, *, mode, caches=None, pos=None, pages=None):
                          f"{cfg.family!r}")
     if cfg.family == "ssm":
         return _ssm_forward(params, x, cfg, ctx, mode=mode, caches=caches)
+    if cfg.family == "audio":
+        return _audio_forward(params, x, cfg, ctx, mode=mode, frames=frames,
+                              caches=caches, pos=pos)
     return _hybrid_forward(params, x, cfg, ctx, mode=mode, caches=caches, pos=pos)
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig, ctx: ModelCtx):
-    """Process the prompt; return (last-token logits (B, V), decode cache)."""
+    """Process the prompt; return (last-token logits (B, V), decode cache).
+    ``batch`` is {"tokens"} (B, S), {"embeds"} (B, S, d) for the vlm
+    family (cast to the compute dtype), or {"frames"} (B, S_enc, d) for the
+    audio family, whose decoder then consumes BOS (token 0) alone."""
     _check_family(cfg)
-    x = embed_tokens(params, batch["tokens"], cfg, ctx)
-    h, caches = _backbone(params, x, cfg, ctx, mode="prefill")
+    if cfg.family == "audio":
+        frames = batch["frames"]
+        bos = torch.zeros((frames.shape[0], 1), dtype=torch.long,
+                          device=frames.device)
+        x = embed_tokens(params, bos, cfg, ctx)
+        x = x + sinusoid(torch.arange(1, device=x.device), cfg.d_model).to(x.dtype)
+        h, caches = _backbone(params, x, cfg, ctx, mode="prefill", frames=frames)
+    elif cfg.embeds_input:
+        x = batch["embeds"].to(ctx.compute_dtype)
+        h, caches = _backbone(params, x, cfg, ctx, mode="prefill")
+    else:
+        x = embed_tokens(params, batch["tokens"], cfg, ctx)
+        h, caches = _backbone(params, x, cfg, ctx, mode="prefill")
     logits = lm_logits(params, h[:, -1:], cfg, ctx)[:, 0]
     if cfg.family == "ssm":
         return logits, {"layers": caches, "pos": x.shape[1]}
     if cfg.family == "hybrid":
         return logits, {"layers": caches["layers"], "kv": caches["kv"],
                         "pos": x.shape[1]}
+    if cfg.family == "audio":
+        return logits, {"self": caches["self"], "cross": caches["cross"],
+                        "pos": x.shape[1]}
     return logits, {"kv": caches, "pos": x.shape[1]}
 
 
 def pad_cache(cache: dict, cfg: ArchConfig, capacity: int) -> dict:
-    """Grow the prefill KV cache along the token axis to ``capacity``
-    (dense leaves (L, B, S, Hkv, Dh) pad axis 2; packed leaves their own
-    layout's token axis). Zero padding is inert under the length mask. A
-    cache without KV (ssm) is returned as it is."""
+    """Grow the prefill's growing KV cache ("kv", or the audio decoder's
+    "self"; never the read-only "cross") along the token axis to
+    ``capacity`` (dense leaves (L, B, S, Hkv, Dh) pad axis 2; packed leaves
+    their own layout's token axis). Zero padding is inert under the length
+    mask. A cache without KV (ssm) is returned as it is."""
     def pad_dense(x):
         s = x.shape[2]
         if s >= capacity:
             return x
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, capacity - s))
 
-    if "kv" not in cache:
-        return cache
-    kv = cache["kv"]
     out = dict(cache)
-    out["kv"] = {name: (kvcache.pad_tokens(t, capacity) if kvcache.is_packed_kv(t)
-                        else pad_dense(t)) for name, t in kv.items()}
+    for key in ("kv", "self"):
+        if key in out:
+            out[key] = {name: (kvcache.pad_tokens(t, capacity)
+                               if kvcache.is_packed_kv(t) else pad_dense(t))
+                        for name, t in out[key].items()}
     return out
 
 
 def quantize_kv_cache(cache: dict, cfg: ArchConfig) -> dict:
     """Convert a prefill KV cache to the HiF4-packed kernel-tile layout
-    (one-time; bit-identical to appending the tokens one at a time). Layers
-    are packed one at a time to bound the float32 working set. The ssm and
+    (one-time; bit-identical to appending the tokens one at a time): the
+    transformer families' "kv", the audio decoder's "self" and its
+    read-only "cross" (packed once here, only ever read after). Layers are
+    packed one at a time to bound the float32 working set. The ssm and
     hybrid families have no packed layout (their KV, if any, stays bf16)."""
-    _check_kv_family(cfg, "quantize_kv_cache")
+    if cfg.family not in PACKED_KV_FAMILIES:
+        raise ValueError(f"quantize_kv_cache packs the attention caches of "
+                         f"{PACKED_KV_FAMILIES}, got {cfg.family!r}")
 
     def pack(t):
         per_layer = [kvcache.to_kernel_layout(kvcache.quantize_kv(t[i]))
@@ -392,17 +549,25 @@ def quantize_kv_cache(cache: dict, cfg: ArchConfig) -> dict:
                 for key in ("codes", "meta", "tail")}
 
     out = dict(cache)
-    out["kv"] = {"k": pack(cache["kv"]["k"]), "v": pack(cache["kv"]["v"])}
+    for key in (("self", "cross") if cfg.family == "audio" else ("kv",)):
+        out[key] = {"k": pack(cache[key]["k"]), "v": pack(cache[key]["v"])}
     return out
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: dict,
                 cfg: ArchConfig, ctx: ModelCtx):
     """token (B,) -> (logits (B, V), cache advanced by one token, in place).
-    A paged cache (``pages`` present) keeps its page table."""
+    A paged cache (``pages`` present) keeps its page table. The audio
+    decoder adds the sinusoid at each slot's position."""
     pos = cache["pos"]
     x = embed_tokens(params, token[:, None], cfg, ctx)            # (B, 1, d)
-    if cfg.family == "ssm":
+    if cfg.family == "audio":
+        posv = kvcache.slot_positions(pos, x.shape[0], x.device)
+        x = x + sinusoid(posv[:, None], cfg.d_model).to(x.dtype)
+        h, new = _backbone(params, x, cfg, ctx, mode="decode", caches=cache,
+                           pos=pos)
+        new_cache = {"self": new["self"], "cross": new["cross"], "pos": pos + 1}
+    elif cfg.family == "ssm":
         h, layers = _backbone(params, x, cfg, ctx, mode="decode",
                               caches=cache["layers"])
         new_cache = {"layers": layers, "pos": pos + 1}

@@ -1,12 +1,16 @@
 """Transformer blocks: GQA attention (QKV bias, qk-norm) + dense MLPs (port
-of ``repro/models/transformer.py``, the dense-LM parts).
+of ``repro/models/transformer.py``, forward only).
 
 Every linear layer runs through :func:`repro_torch.models.common.dense` with
-its per-site config (``ctx.site_quant("attn.wq")`` etc.). Attention modes:
-  * full    — flash attention over the whole sequence; with
-              ``return_cache`` it also returns the RoPE'd KV (prefill)
+its per-site config (``ctx.site_quant("attn.wq")`` etc.; ``site="xattn"``
+for the audio decoder's cross-attention). Norms are RMSNorm, or LayerNorm
+with bias for the audio family. Attention modes:
+  * full    — flash attention over the whole sequence (causal, or not for
+              the audio encoder); with ``return_cache`` it also returns the
+              (RoPE'd) KV (prefill)
   * decode  — one token against a KV cache (contiguous, or the paged pool
-              through a page table), appending at ``pos``
+              through a page table), appending at ``pos``; with ``cross``
+              against the read-only encoder cache, projecting only q
 """
 from __future__ import annotations
 
@@ -17,17 +21,22 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import engine as qengine
 from repro_torch.core import kvcache
 from repro_torch.models.attention import AttnChunking, decode_attention, flash_attention
-from repro_torch.models.common import ModelCtx, apply_rope, dense, rms_norm
+from repro_torch.models.common import (ModelCtx, apply_rope, dense, layer_norm,
+                                       rms_norm)
 from repro_torch.models.params import PSpec
 
 
 def norm_specs(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
     if cfg.family == "audio":
-        raise NotImplementedError("LayerNorm (audio family) is not yet ported")
-    return {"w": PSpec((cfg.d_model,), (None,), init="ones")}
+        return {"w": PSpec((d,), (None,), init="ones"),
+                "b": PSpec((d,), (None,), init="zeros")}
+    return {"w": PSpec((d,), (None,), init="ones")}
 
 
 def norm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if "b" in p:
+        return layer_norm(x, p["w"], p["b"], eps=cfg.norm_eps)
     return rms_norm(x, p["w"], eps=cfg.norm_eps)
 
 
@@ -55,48 +64,71 @@ def attn_specs(cfg: ArchConfig) -> dict:
     return specs
 
 
-def _proj_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx):
-    """x (..., d) -> q (..., H, Dh), k/v (..., Hkv, Dh), RoPE not yet applied."""
+def proj_q(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx,
+           site: str = "attn") -> torch.Tensor:
+    """x (..., d) -> q (..., H, Dh), bias added, RoPE not yet applied."""
     a = cfg.attn
-    d = cfg.d_model
-    lead = x.shape[:-1]
-    q = dense(x, p["wq"].reshape(d, -1), quant=ctx.site_quant("attn.wq")
-              ).reshape(lead + (a.n_heads, a.d_head))
-    k = dense(x, p["wk"].reshape(d, -1), quant=ctx.site_quant("attn.wk")
-              ).reshape(lead + (a.n_kv_heads, a.d_head))
-    v = dense(x, p["wv"].reshape(d, -1), quant=ctx.site_quant("attn.wv")
-              ).reshape(lead + (a.n_kv_heads, a.d_head))
+    q = dense(x, p["wq"].reshape(cfg.d_model, -1),
+              quant=ctx.site_quant(f"{site}.wq")
+              ).reshape(x.shape[:-1] + (a.n_heads, a.d_head))
     if a.qkv_bias:
         q = q + p["bq"].to(q.dtype)
+    return q
+
+
+def proj_kv(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx,
+            site: str = "attn") -> tuple[torch.Tensor, torch.Tensor]:
+    """x (..., d) -> k, v (..., Hkv, Dh), bias added (no norm, no RoPE)."""
+    a = cfg.attn
+    d = cfg.d_model
+    lead = x.shape[:-1] + (a.n_kv_heads, a.d_head)
+    k = dense(x, p["wk"].reshape(d, -1), quant=ctx.site_quant(f"{site}.wk")
+              ).reshape(lead)
+    v = dense(x, p["wv"].reshape(d, -1), quant=ctx.site_quant(f"{site}.wv")
+              ).reshape(lead)
+    if a.qkv_bias:
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    if a.qk_norm:
+    return k, v
+
+
+def _proj_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx,
+              site: str = "attn"):
+    """x (..., d) -> q (..., H, Dh), k/v (..., Hkv, Dh), RoPE not yet applied.
+    ``site`` names the param subtree under ``ctx.scope`` ("attn", or the
+    audio decoder's "xattn"), so each projection resolves its own policy
+    site."""
+    q = proj_q(p, x, cfg, ctx, site)
+    k, v = proj_kv(p, x, cfg, ctx, site)
+    if cfg.attn.qk_norm:
         q = rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
     return q, k, v
 
 
-def _out_proj(p: dict, o: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx
-              ) -> torch.Tensor:
+def out_proj(p: dict, o: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx,
+             site: str = "attn") -> torch.Tensor:
     a = cfg.attn
     o = o.reshape(o.shape[:-2] + (a.n_heads * a.d_head,))
     return dense(o, p["wo"].reshape(-1, cfg.d_model),
-                 quant=ctx.site_quant("attn.wo"))
+                 quant=ctx.site_quant(f"{site}.wo"))
 
 
 def attn_full(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx, *,
-              return_cache: bool = False):
-    """Causal full-sequence attention; optionally returns the KV cache
+              causal: bool = True, use_rope: bool = True,
+              return_cache: bool = False, site: str = "attn"):
+    """Full-sequence self-attention; optionally returns the KV cache
     (prefill)."""
     B, S, _ = x.shape
-    q, k, v = _proj_qkv(p, x, cfg, ctx)
-    positions = torch.arange(S, device=x.device)
-    q = apply_rope(q, positions, cfg.attn.rope_theta)
-    k = apply_rope(k, positions, cfg.attn.rope_theta)
+    q, k, v = _proj_qkv(p, x, cfg, ctx, site)
+    if use_rope:
+        positions = torch.arange(S, device=x.device)
+        q = apply_rope(q, positions, cfg.attn.rope_theta)
+        k = apply_rope(k, positions, cfg.attn.rope_theta)
     chunking = AttnChunking(q_chunk=min(ctx.attn_q_chunk, S),
                             k_chunk=min(ctx.attn_k_chunk, S))
-    o = flash_attention(q, k, v, chunking=chunking)
-    y = _out_proj(p, o, cfg, ctx)
+    o = flash_attention(q, k, v, causal=causal, chunking=chunking)
+    y = out_proj(p, o, cfg, ctx, site)
     return y, ({"k": k, "v": v} if return_cache else None)
 
 
@@ -110,8 +142,10 @@ def _append_kv(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
-                ctx: ModelCtx, *, pages=None):
-    """One-token attention against, and appending to, a KV cache.
+                ctx: ModelCtx, *, use_rope: bool = True, cross: bool = False,
+                site: str = "attn", pages=None):
+    """One-token attention against, and (unless ``cross``) appending to, a KV
+    cache.
 
     x (B, 1, d); cache {"k","v"} either bf16 (B, S, Hkv, Dh), HiF4-packed
     leaves (:mod:`repro_torch.core.kvcache`) or, with ``pages`` (B,
@@ -119,37 +153,56 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
     ``pos`` the valid-slot count, a scalar (lockstep batch) or (B,) per
     slot. The new token is written into the cache tensors in place (through
     the page table for the pool); the (same) cache dict is returned.
+
+    With ``cross`` the cache is the read-only encoder cache: nothing is
+    appended, every slot's length is the cache's capacity, and only q is
+    projected (the reference computes k and v too and drops them; XLA
+    removes that dead work, so the port does not launch it).
     """
     B = x.shape[0]
     dev = x.device
     posv = kvcache.slot_positions(pos, B, dev)
-    q, k_new, v_new = _proj_qkv(p, x, cfg, ctx)              # (B, 1, H/Hkv, Dh)
-    q = apply_rope(q, posv[:, None], cfg.attn.rope_theta)
-    k_new = apply_rope(k_new, posv[:, None], cfg.attn.rope_theta)
-    length = (posv + 1).to(torch.int32)
-    if pages is not None:
-        # paged HiF4 pool: the one token's bytes land at (pages[b, pos//P],
-        # pos % P); the scheduler gives live slots pages they own alone
-        if not kvcache.is_packed_kv(cache["k"]):
-            raise ValueError("the page pool is HiF4-only")
-        kvcache.append_token_paged(cache["k"], k_new, posv, pages)
-        kvcache.append_token_paged(cache["v"], v_new, posv, pages)
-    elif kvcache.is_packed_kv(cache["k"]):
-        # quantize the one new token into its own 64-groups + tail, write
-        # only those bytes; attention streams the packed cache
-        kvcache.append_token(cache["k"], k_new, posv)
-        kvcache.append_token(cache["v"], v_new, posv)
+    packed = kvcache.is_packed_kv(cache["k"])
+    if cross:
+        q = proj_q(p, x, cfg, ctx, site)                       # (B, 1, H, Dh)
+        if cfg.attn.qk_norm:
+            q = rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
+        if use_rope:
+            q = apply_rope(q, posv[:, None], cfg.attn.rope_theta)
+        cap = (kvcache.seq_capacity(cache["k"]) if packed
+               else cache["k"].shape[1])
+        length = torch.full((B,), cap, dtype=torch.int32, device=dev)
     else:
-        _append_kv(cache["k"], k_new, posv)
-        _append_kv(cache["v"], v_new, posv)
-        o = decode_attention(q[:, 0], cache["k"], cache["v"], length)
-    if kvcache.is_packed_kv(cache["k"]):
+        q, k_new, v_new = _proj_qkv(p, x, cfg, ctx, site)    # (B, 1, H/Hkv, Dh)
+        if use_rope:
+            q = apply_rope(q, posv[:, None], cfg.attn.rope_theta)
+            k_new = apply_rope(k_new, posv[:, None], cfg.attn.rope_theta)
+        length = (posv + 1).to(torch.int32)
+        if pages is not None:
+            # paged HiF4 pool: the one token's bytes land at (pages[b,
+            # pos//P], pos % P); the scheduler gives live slots pages they
+            # own alone
+            if not packed:
+                raise ValueError("the page pool is HiF4-only")
+            kvcache.append_token_paged(cache["k"], k_new, posv, pages)
+            kvcache.append_token_paged(cache["v"], v_new, posv, pages)
+        elif packed:
+            # quantize the one new token into its own 64-groups + tail,
+            # write only those bytes; attention streams the packed cache
+            kvcache.append_token(cache["k"], k_new, posv)
+            kvcache.append_token(cache["v"], v_new, posv)
+        else:
+            _append_kv(cache["k"], k_new, posv)
+            _append_kv(cache["v"], v_new, posv)
+    if packed:
         o = qengine.attention_decode(
             q[:, 0].contiguous(), cache["k"], cache["v"], length,
             cfg.attn.n_kv_heads, cfg.attn.d_head,
             qengine.EngineCtx(quant=ctx.quant), pages=pages,
             block_kv=ctx.attn_kv_block)
-    y = _out_proj(p, o[:, None], cfg, ctx)                     # (B, 1, d)
+    else:
+        o = decode_attention(q[:, 0], cache["k"], cache["v"], length)
+    y = out_proj(p, o[:, None], cfg, ctx, site)                # (B, 1, d)
     return y, cache
 
 

@@ -80,12 +80,14 @@ class ServeConfig:
 
 def resolve_kv_format(cfg: ArchConfig, quant: QuantConfig,
                       serve_cfg: ServeConfig, *, verbose: bool = False) -> str:
-    """The KV storage this serve runs: ServeConfig overrides the policy's;
-    families without an attention cache fall back to bf16."""
+    """The KV storage this serve runs: ServeConfig overrides the policy's.
+    The attention caches pack (the transformer families', and the audio
+    decoder's self and read-only cross caches); the SSM-state families fall
+    back to bf16."""
     fmt = serve_cfg.kv_format or quant.kv.kv_format
     if fmt not in kvcache.KV_FORMATS:
         raise ValueError(f"kv_format {fmt!r} not in {kvcache.KV_FORMATS}")
-    if fmt == "hif4" and cfg.family not in ("dense", "vlm", "moe", "audio"):
+    if fmt == "hif4" and cfg.family not in lm.PACKED_KV_FAMILIES:
         if verbose:
             warnings.warn(f"kv_format=hif4 has no packed layout for family "
                           f"{cfg.family!r} (SSM recurrent state) — serving "
@@ -243,16 +245,22 @@ def load_serving_artifact(directory: str, cfg: ArchConfig, *,
 
 def kv_cache_bytes(cache: dict) -> tuple[int, int]:
     """(resident KV-cache bytes, token slots B * capacity) of a decode cache,
-    bf16 or HiF4-packed."""
+    bf16 or HiF4-packed: every attention cache ("kv", or the audio
+    decoder's "self" and "cross") counts its bytes; the slots are the
+    growing cache's (the read-only cross cache adds bytes, no slots)."""
     total = slots = 0
-    for tensor in (cache["kv"]["k"], cache["kv"]["v"]):
-        if kvcache.is_packed_kv(tensor):
-            total += kvcache.packed_kv_nbytes(tensor)
-            b, s = tensor["meta"].shape[1], kvcache.seq_capacity(tensor)
-        else:
-            total += tensor.numel() * tensor.element_size()
-            b, s = tensor.shape[1], tensor.shape[2]
-        slots = b * s
+    for entry, counts_slots in (("kv", True), ("self", True), ("cross", False)):
+        if entry not in cache:
+            continue
+        for tensor in (cache[entry]["k"], cache[entry]["v"]):
+            if kvcache.is_packed_kv(tensor):
+                total += kvcache.packed_kv_nbytes(tensor)
+                b, s = tensor["meta"].shape[1], kvcache.seq_capacity(tensor)
+            else:
+                total += tensor.numel() * tensor.element_size()
+                b, s = tensor.shape[1], tensor.shape[2]
+            if counts_slots:
+                slots = b * s
     return total, slots
 
 
@@ -260,9 +268,11 @@ def build_decode_cache(cfg: ArchConfig, serving_params: dict, batch: dict,
                        sctx: ModelCtx, serve_cfg: ServeConfig, *,
                        verbose: bool = False):
     """Prefill and return (last-token logits, THE decode cache serve runs):
-    prefill, pack the prefix once when the serve runs hif4 KV, then pad its
-    KV, if it has one (not ssm), to ``cache_capacity`` (default prompt +
-    max_new_tokens) slots."""
+    prefill ``batch`` ({"tokens"}, {"embeds"} or {"frames"}, as the family
+    takes), pack the prefix once when the serve runs hif4 KV, then pad its
+    growing KV, if it has one (not ssm), to ``cache_capacity`` (default
+    prefill position + max_new_tokens; the audio decoder's position after
+    the prefill is 1, BOS) slots."""
     kv_fmt = resolve_kv_format(cfg, sctx.quant, serve_cfg, verbose=verbose)
     logits, cache = _prefill(cfg, serving_params, batch, sctx, kv_fmt)
     cap = serve_cfg.cache_capacity or int(cache["pos"]) + serve_cfg.max_new_tokens
@@ -336,7 +346,9 @@ def serve(cfg: ArchConfig, params: dict, batch: dict, ctx: ModelCtx,
           device: DeviceLike = None, stats: Optional[dict] = None
           ) -> torch.Tensor:
     """Greedy-decode ``max_new_tokens`` on ``device``; returns (B, T) int32
-    tokens. All requests advance in lockstep. With ``stats`` (a dict), the
+    tokens. ``batch`` holds the prefill inputs: {"tokens"} (B, S), or the
+    stub frontends' {"embeds"} (vlm) or {"frames"} (audio), (B, S, d). All
+    requests advance in lockstep. With ``stats`` (a dict), the
     prefill and decode wall times are recorded there (``prefill_s``,
     ``decode_s``, ``decode_steps``), each ending in a device synchronize.
     """
@@ -580,6 +592,10 @@ def serve_requests(cfg: ArchConfig, params: dict, requests: Sequence,
     if cfg.family not in lm.KV_FAMILIES:
         raise ValueError(f"continuous batching supports KV-cache families, "
                          f"got {cfg.family!r}")
+    if cfg.embeds_input:
+        raise ValueError(f"continuous batching serves token prompts; "
+                         f"{cfg.name!r} ({cfg.family}) takes precomputed "
+                         f"embeds (dense/vlm-embeds not supported)")
     dev = resolve_device(device)
     sctx = serving_ctx(ctx)
     params = prepare_params_for_serving(params, cfg, ctx.plan or ctx.quant,

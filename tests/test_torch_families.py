@@ -2,7 +2,8 @@
 reference, and the two repairs their full widths need.
 
 * Each config equals the reference's field for field, in full and reduced
-  form; the archs the port still lacks raise "not yet ported".
+  form (whisper-tiny and llava-next-34b too); every reference arch
+  resolves in the port.
 * Greedy tokens at ``--reduced`` (paper-iv, impl packed, HiF4 KV) equal the
   reference's for qwen1.5-4b, qwen3-4b, nemotron-4-340b,
   granite-moe-1b-a400m and phi3.5-moe-42b-a6.6b, and so does the serving
@@ -29,9 +30,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import all_archs as jall_archs
 from repro.configs import get_arch as jget_arch
-from repro_torch.configs import get_arch
-from repro_torch.configs.base import NOT_YET_PORTED_ARCHS
+from repro_torch.configs import all_archs, get_arch
 from repro_torch.core import engine as TE
 from repro_torch.core import qlinear
 from repro_torch.core.qlinear import PackedW, QuantConfig
@@ -48,7 +49,7 @@ ARCHS = ("qwen1.5-4b", "qwen3-4b", "nemotron-4-340b", "granite-moe-1b-a400m",
 BATCH, PROMPT, NEW = 2, 8, 6
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("whisper-tiny", "llava-next-34b"))
 def test_config_equals_reference(arch):
     for port, ref in ((get_arch(arch), jget_arch(arch)),
                       (get_arch(arch).reduced(), jget_arch(arch).reduced())):
@@ -58,10 +59,13 @@ def test_config_equals_reference(arch):
 
 
 def test_archs_still_to_port_raise():
-    assert NOT_YET_PORTED_ARCHS == {"whisper-tiny", "llava-next-34b"}
-    for arch in NOT_YET_PORTED_ARCHS:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_arch(arch)
+    """None is left: every reference arch resolves, under its own name; an
+    arch neither package has raises."""
+    assert all_archs() == jall_archs() and len(all_archs()) == 10
+    for arch in jall_archs():
+        assert get_arch(arch).name == arch
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_arch("whisper-base")
 
 
 # ---------------------------------------------------------------------------

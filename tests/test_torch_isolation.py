@@ -4,10 +4,12 @@
   anything of the JAX package (an AST scan of every import).
 * Entry points run on ``cuda`` unless the caller asks for the CPU: without a
   CUDA device they raise instead of running on the CPU.
-* What the port does not carry yet raises "not yet ported"; what it now
-  carries (the NVFP4/MXFP4 formats, the journal) resolves.
+* What the port does not carry yet (the train mode) is absent and raises
+  on use; what it now carries (the NVFP4/MXFP4 formats, the journal, every
+  architecture and family) resolves.
 """
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -122,10 +124,11 @@ def test_not_yet_ported_parts_raise():
         serve_requests(cfg, lm.init_params(cfg, 0, device="cpu"),
                        [torch.zeros(8, dtype=torch.long)], ModelCtx(),
                        ServeConfig(max_new_tokens=2), device="cpu", resume=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_arch("whisper-tiny")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        lm.abstract_params(get_arch("qwen1.5-0.5b").__class__(
-            name="m", family="audio", n_layers=1, d_model=64, vocab=8))
+    # every family is ported; the train mode (the reference's train_loss
+    # and repro.launch.train) is not
+    assert "enc_blocks" in lm.abstract_params(get_arch("whisper-tiny"))
+    assert not hasattr(lm, "train_loss")
+    with pytest.raises(ModuleNotFoundError, match="repro_torch.launch.train"):
+        importlib.import_module("repro_torch.launch.train")
     with pytest.raises(ValueError):
         get_format("fp3")

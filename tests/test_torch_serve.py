@@ -196,11 +196,11 @@ def test_serve_eos_and_decode_chunks(ref):
     np.testing.assert_array_equal(toks.numpy(), want)
 
 
-def _launch(*args):
+def _launch(*args, module="repro_torch.launch.serve"):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           *args], capture_output=True, text=True, env=env,
-                          cwd=REPO, timeout=300)
+    return subprocess.run([sys.executable, "-m", module, *args],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=300)
 
 
 def test_launcher_serves_on_cpu():
@@ -220,11 +220,14 @@ def test_launcher_serves_on_cpu():
 
 
 def test_launcher_refuses_flags_not_yet_ported():
-    """The robustness flags are ported; a family the port does not carry
-    yet (the audio encoder-decoder) still exits nonzero with "not yet
-    ported"."""
-    out = _launch("--arch", "whisper-tiny", "--reduced", "--device", "cpu")
-    assert out.returncode != 0 and "not yet ported" in out.stderr
+    """Every serve flag and family is ported; the train mode (the
+    reference's ``repro.launch.train``) is not, and asking for it exits
+    nonzero, as does an arch neither package has."""
+    out = _launch("--arch", "whisper-tiny", "--reduced", "--device", "cpu",
+                  module="repro_torch.launch.train")
+    assert out.returncode != 0 and "repro_torch.launch.train" in out.stderr
+    out = _launch("--arch", "whisper-base", "--reduced", "--device", "cpu")
+    assert out.returncode == 2 and "unknown arch 'whisper-base'" in out.stderr
 
 
 def test_launcher_serves_paged_on_cpu():
