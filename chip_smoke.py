@@ -99,7 +99,7 @@ Phases (any failure ends the run with a nonzero exit):
              and nemotron-4-340b at full width on its first 2 of 96 layers
              (8 new tokens, the packing's peak memory), exact launches per
              kernel and shape, tokens that vary across the batch; granite
-             (first 12 of 24 layers) through the paged phase's pool on
+             (first 6 of 24 layers) through the paged phase's pool on
              prompts of 400-480 tokens (hits, COW, evictions, a
              preemption), paged equal to solo for requests 0-2 and every
              preempted one; granite's expert einsums'
@@ -139,6 +139,27 @@ Phases (any failure ends the run with a nonzero exit):
              logits) vs CPU: at most 1% of the prefill logits outside
              rtol=0.05, atol=0.1 (init-scale weights, as every e2e cut;
              the 5x weights read, not bounded), tokens compared.
+12. calibrate — calibration (which itself launches no kernel: the probe's
+             bf16 forward has no plan, HiGPTQ and the scoring are plain
+             PyTorch, as in the reference), then its policy served:
+             (a) reduced qwen1.5-0.5b calibrated on the card and on the
+             CPU, the same weights and batches, at the sensitive-fallback
+             preset's bytes: the same assignment and bytes, every per-site
+             error within rtol 2e-2, HiGPTQ within 1.25x the direct cast;
+             (b) qwen1.5-0.5b at full width and depth (5x weights drawn on
+             the card, 2 batches of (2, 64)) at that target and at 0.7
+             B/value: the probe's, HiGPTQ's and the search's seconds, each
+             site's hif4 and hif4_direct errors, the achieved B/value and
+             both baselines; feasible, verified (calibrate raises
+             otherwise), the curve's bytes falling strictly, the search at
+             the preset's bytes no worse than the preset in bytes and
+             error, a mixed plan; (c) the fallback target's emitted file
+             through get_policy(path, impl="packed") with its HiF4 KV,
+             served at batch 8, prompt 480, 32 new tokens: launches exact
+             from the assignment (the bf16 sites take torch.matmul), the
+             served in-budget bytes equal to the report's, the first 4
+             tokens against the plain versions. Policy files and reports go
+             to .calibrate/ in the checkout (git-ignored).
 
 The last lines are the kernel records as one JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. The script imports
@@ -2325,10 +2346,10 @@ FAMILY_ATTENTION = (("qwen3-4b", 8, 32, 128, 512),
 # 16 tokens into its partial tail page (a slot's last page, 448-511, is
 # never shared).
 FAMILY_TAILS = (224, 160, 176, 192, 208, 160, 176, 224, 192, 208, 176)
-# granite's paged run at full width on its first 12 of 24 layers (its first
+# granite's paged run at full width on its first 6 of 24 layers (its first
 # layers are the whole model's, so no prefix overflows there either; the
 # scheduling depends on the prompts' lengths alone)
-FAMILY_PAGED_LAYERS = 12
+FAMILY_PAGED_LAYERS = 6
 # requests held against their solo serves, with every preempted one:
 # request 2 shares request 1's partial tail page and copies it (COW)
 FAMILY_SOLO = (0, 1, 2)
@@ -3621,6 +3642,244 @@ def phase_encdec(dev, seed, records):
     part("done")
 
 
+CALIBRATE = {"arch": "qwen1.5-0.5b", "n_batches": 2, "batch": 2, "seq_len": 64,
+             "errors_rtol": 2e-2, "higptq_bound": 1.25, "targets":
+             ("sensitive-fallback", 0.7), "new_tokens": 32}
+CALIBRATE_OUT = ROOT / ".calibrate"
+
+
+def _calibration_batches(cfg, seed):
+    """The reference's calibration set: ``n_batches`` prefill batches of
+    (batch, seq_len) token ids from ``seed + i``, on the host."""
+    from repro_torch.launch.serve import prefill_batch
+
+    return [prefill_batch(cfg, CALIBRATE["batch"], CALIBRATE["seq_len"],
+                          seed + i, "cpu") for i in range(CALIBRATE["n_batches"])]
+
+
+def _site_rows(summary) -> dict:
+    return {r["path"]: r for r in summary["report"]["sites"]}
+
+
+def _check_higptq_bound(label, summary) -> None:
+    """Every packable captured site's HiGPTQ error within 1.25x its direct
+    cast's (the reference's bound, tests/test_calibrate.py)."""
+    for path, r in _site_rows(summary).items():
+        if r["packable"] and r["captured"]:
+            e = r["errors"]
+            check(0 < e["hif4"] <= CALIBRATE["higptq_bound"] * e["hif4_direct"],
+                  f"{label}: {path}: HiGPTQ error {e['hif4']} above "
+                  f"{CALIBRATE['higptq_bound']} x the direct cast's "
+                  f"{e['hif4_direct']}")
+
+
+def calibrate_card_vs_cpu(dev, seed) -> None:
+    """(a) reduced qwen1.5-0.5b calibrated on the card and on the CPU, the
+    same weights and batches, at the fallback preset's bytes: the same
+    assignment and bytes, every per-site error within rtol 2e-2."""
+    from repro_torch.calibrate import calibrate
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    cfg = get_arch(CALIBRATE["arch"]).reduced()
+    params = lm.init_params(cfg, seed, device="cpu")
+    batches = _calibration_batches(cfg, seed)
+    runs = {}
+    for where in ("cpu", dev):
+        t0 = time.perf_counter()
+        runs[str(where)] = calibrate(
+            CALIBRATE["arch"], reduced=True, target_bpv="sensitive-fallback",
+            seed=seed, params=_map_tensors(params, lambda t: t.to(where)),
+            batches=batches, device=where, log=lambda *_: None)
+        print(f"  reduced {cfg.name} on {where}: {time.perf_counter() - t0:.2f} s "
+              f"({runs[str(where)]['n_packed']} of {runs[str(where)]['n_sites']} "
+              f"sites packed, {runs[str(where)]['total_bytes']} B)")
+    cpu, card = runs["cpu"], runs[str(dev)]
+    check(card["assignment"] == cpu["assignment"], f"reduced: card assignment "
+          f"{card['assignment']} != the CPU's {cpu['assignment']}")
+    check(card["total_bytes"] == cpu["total_bytes"], "reduced: card bytes "
+          f"{card['total_bytes']} != the CPU's {cpu['total_bytes']}")
+    worst = 0.0
+    cpu_rows = _site_rows(cpu)
+    for path, r in _site_rows(card).items():
+        if r["errors"] is None:
+            check(cpu_rows[path]["errors"] is None, f"reduced: {path} scored "
+                  f"on the CPU only")
+            continue
+        for fmt, e in r["errors"].items():
+            ref = cpu_rows[path]["errors"][fmt]
+            rel = abs(e - ref) / max(abs(ref), 1e-30)
+            worst = max(worst, rel)
+            check(rel <= CALIBRATE["errors_rtol"], f"reduced: {path} {fmt} "
+                  f"error {e} on the card vs {ref} on the CPU")
+    print(f"  card vs CPU: assignment and bytes equal; per-site errors within "
+          f"rel {worst:.2e} (limit {CALIBRATE['errors_rtol']})")
+    _check_higptq_bound("reduced card", card)
+
+
+def calibrate_full(dev, seed, raw) -> dict:
+    """(b) qwen1.5-0.5b at full width and depth calibrated on the card at
+    each of ``CALIBRATE["targets"]``: feasible, verified, the curve's bytes
+    falling strictly, and at the fallback preset's bytes the search no worse
+    than the preset in bytes or error. Returns {target: summary}."""
+    import torch
+    from repro_torch.calibrate import calibrate
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(CALIBRATE["arch"])
+    batches = _calibration_batches(cfg, seed)
+    CALIBRATE_OUT.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for target in CALIBRATE["targets"]:
+        name = str(target)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = calibrate(CALIBRATE["arch"], reduced=False, target_bpv=target,
+                      seed=seed, kv_format="hif4", params=raw, batches=batches,
+                      device=dev, out=str(CALIBRATE_OUT / f"{name}.json"),
+                      report_out=str(CALIBRATE_OUT / f"{name}.report.json"),
+                      log=lambda m: print(f"  {m}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t = s["timings"]
+        print(f"  target {name}: {wall:.2f} s (probe {t['probe_s']:.2f} s, "
+              f"HiGPTQ {t['higptq_s']:.2f} s, other scoring "
+              f"{t['score_s']:.2f} s, search {t['search_s'] * 1e3:.2f} ms) on "
+              f"{card_line()}")
+        if target == CALIBRATE["targets"][0]:
+            print(f"  {'site':18} {'hif4 (HiGPTQ)':>14} {'hif4_direct':>12} "
+                  f"{'nvfp4':>10} {'mxfp4':>10}  in budget")
+            for path, r in _site_rows(s).items():
+                if r["errors"] is not None:
+                    e = r["errors"]
+                    print(f"  {path:18} {e['hif4']:14.6f} {e['hif4_direct']:12.6f} "
+                          f"{e['nvfp4']:10.6f} {e['mxfp4']:10.6f}  {r['in_budget']}")
+        print(f"  achieved {s['achieved_bpv']} B/value ({s['total_bytes']} B, "
+              f"{s['n_packed']} of {s['n_sites']} sites packed: "
+              f"{sorted(p for p, f in s['assignment'].items() if f == 'hif4')}); "
+              f"error {s['total_error']:.1f}")
+        for preset, b in s["baselines"].items():
+            print(f"  baseline {preset:20} {b['achieved_bpv']:.6f} B/value "
+                  f"{b['total_bytes']} B, error {b['total_error']:.1f}")
+        check(s["feasible"], f"target {name}: infeasible")
+        curve = s["report"]["pareto_curve"]
+        check(len(curve) >= 2 and all(b["total_bytes"] < a["total_bytes"]
+                                       for a, b in zip(curve, curve[1:])),
+              f"target {name}: the curve's bytes do not fall strictly")
+        _check_higptq_bound(f"full width {name}", s)
+        out[target] = s
+    s = out["sensitive-fallback"]
+    fb = s["baselines"]["sensitive-fallback"]
+    check(s["total_bytes"] <= fb["total_bytes"] and s["total_error"]
+          <= fb["total_error"] + 1e-6, f"at the fallback's bytes the search "
+          f"({s['total_bytes']} B, error {s['total_error']}) does not dominate "
+          f"the preset ({fb['total_bytes']} B, error {fb['total_error']})")
+    check(0 < s["n_packed"] < s["n_sites"], "the fallback budget's plan is not "
+          "mixed")
+    check(out[0.7]["achieved_bpv"] <= 0.7, "0.7: over budget")
+    return out
+
+
+def _budget_bytes(sparams, paths) -> int:
+    """Resident bytes of the served tree's leaves at ``paths`` (PackedW:
+    codes + meta; dense: the tensor)."""
+    from repro_torch.core.qlinear import PackedW
+
+    total = 0
+    for path in paths:
+        node = sparams
+        for part in path.split("."):
+            node = node[part]
+        ts = (node.codes, node.meta) if isinstance(node, PackedW) else (node,)
+        total += sum(t.numel() * t.element_size() for t in ts)
+    return total
+
+
+def calibrate_serve(dev, seed, raw, summary) -> None:
+    """(c) the fallback budget's emitted policy file served at full width:
+    get_policy(file, impl="packed") with its HiF4 KV, batch 8, prompt 480;
+    exact launches from the assignment (the bf16 sites take torch.matmul),
+    the served in-budget bytes equal to the report's, the first steps
+    against the plain versions."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import prefill_batch
+    from repro_torch.models import lm
+    from repro_torch.models.common import ModelCtx
+    from repro_torch.runtime.serve_loop import (
+        ServeConfig, prepare_params_for_serving, serve)
+
+    cfg = get_arch(CALIBRATE["arch"])
+    pol = get_policy(summary["policy_path"], impl="packed")
+    check(pol.kv.kv_format == "hif4", f"policy file KV {pol.kv.kv_format}")
+    ctx = ModelCtx(plan=lm.quant_plan(cfg, pol))
+    packed = sorted(p for p, f in summary["assignment"].items() if f == "hif4")
+    check(sorted(ctx.plan.packed_paths) == packed, f"the file's plan packs "
+          f"{sorted(ctx.plan.packed_paths)}, the search {packed}")
+    sparams = prepare_params_for_serving(raw, cfg, ctx.plan, device=dev)
+    served = _budget_bytes(sparams, summary["assignment"])
+    print(f"  {summary['policy_path']}: packs {packed}; served in-budget bytes "
+          f"{served} (report {summary['report']['search']['total_bytes']})")
+    check(served == summary["report"]["search"]["total_bytes"] ==
+          summary["total_bytes"], "served bytes != the report's total_bytes")
+    m, prompt, new = FAMILY_BATCH, FAMILY_PROMPT, CALIBRATE["new_tokens"]
+    batch = prefill_batch(cfg, m, prompt, seed + 1, dev)
+    serve(cfg, sparams, {k: v[:, :64] for k, v in batch.items()}, ctx,
+          ServeConfig(max_new_tokens=2), device=dev)          # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    stats: dict = {}
+    toks = serve(cfg, sparams, batch, ctx, ServeConfig(max_new_tokens=new),
+                 device=dev, stats=stats)
+    torch.cuda.synchronize()
+    launches, per_shape = dict(build.LAUNCHES), dict(build.SHAPE_LAUNCHES)
+    steps = stats["decode_steps"]
+    print(f"  prefill {stats['prefill_s'] * 1e3:.1f} ms for {m} x {prompt} "
+          f"tokens; decode {stats['decode_s'] * 1e3 / steps:.2f} ms/step "
+          f"({m * steps / stats['decode_s']:.1f} tokens/s over {steps} steps); "
+          f"{card_line()}")
+    want, want_shapes = expected_launches(cfg, _packed_shapes(sparams), steps,
+                                          m, m * prompt)
+    print(f"  launches: {launches} (expected from {len(packed)} packed sites "
+          f"x {cfg.n_layers} layers: {want})")
+    check(launches == want, f"launch counts {launches} != {want}")
+    check(per_shape == want_shapes, f"launches per shape {per_shape} != "
+          f"{want_shapes}")
+    check(tuple(toks.shape) == (m, new), f"tokens shape {tuple(toks.shape)}")
+    print(f"  request 0: {toks[0].tolist()}")
+    _check_tokens_vary("calibrated", toks.cpu())
+    check_against_plain("calibrated", cfg, sparams,
+                        {k: v.to(dev) for k, v in batch.items()}, ctx, new, toks)
+
+
+def phase_calibrate(dev, seed):
+    """Calibration on the card: (a) reduced card vs CPU, (b) full width and
+    depth at two targets, (c) the fallback budget's policy file served on
+    the ported kernels."""
+    import torch
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+
+    def part(label):
+        print(f"  -- {label} (at {time.perf_counter() - t0:.1f} s)")
+
+    part("(a) reduced, card vs CPU")
+    calibrate_card_vs_cpu(dev, seed)
+    part("(b) full width and depth")
+    cfg = get_arch(CALIBRATE["arch"])
+    raw = family_weights(cfg, seed, dev)
+    summaries = calibrate_full(dev, seed, raw)
+    torch.cuda.empty_cache()
+    part("(c) the searched policy served")
+    calibrate_serve(dev, seed, raw, summaries["sensitive-fallback"])
+    del raw
+    torch.cuda.empty_cache()
+    part("done")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of repro_torch")
     ap.add_argument("--seed", type=int, default=0,
@@ -3628,7 +3887,8 @@ def main(argv=None) -> int:
                          "phase families holds on seed 0 only")
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (kernels,serve,pallas,"
-                         "e2e,paged,robust,families,ssm,encdec); default all")
+                         "e2e,paged,robust,families,ssm,encdec,calibrate); "
+                         "default all")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
 
@@ -3665,7 +3925,8 @@ def main(argv=None) -> int:
               ("robust", lambda: phase_robust(dev, args.seed, records)),
               ("families", lambda: phase_families(dev, args.seed, records)),
               ("ssm", lambda: phase_ssm(dev, args.seed, records)),
-              ("encdec", lambda: phase_encdec(dev, args.seed, records))]
+              ("encdec", lambda: phase_encdec(dev, args.seed, records)),
+              ("calibrate", lambda: phase_calibrate(dev, args.seed))]
     try:
         print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")

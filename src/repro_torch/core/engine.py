@@ -47,6 +47,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import hif4, kvcache
+from repro_torch.core import tap as site_tap
 from repro_torch.core.qlinear import (
     NO_QUANT,
     PackedW,
@@ -110,6 +111,10 @@ def matmul(x: torch.Tensor, w, ectx: EngineCtx = DEFAULT_ENGINE, *,
     tensor or a :class:`PackedW`; ``accum_dtype`` is the dot output dtype on
     the qdq/fallback paths (default x.dtype)."""
     cfg = ectx.quant
+    # calibration probe: record this contraction's activation operand under
+    # the site path ModelCtx.site_quant marked (no-op without an installed
+    # tap, see repro_torch.core.tap)
+    site_tap.consume_pending(x, contract_x)
     if isinstance(w, PackedW):
         if _fused_packed_ok(cfg, x, contract_x, w):
             return _fused_packed_matmul(x, w, ectx)
@@ -131,6 +136,7 @@ def qdq_einsum(eq: str, a: torch.Tensor, w: torch.Tensor, ectx: EngineCtx, *,
     ``impl`` says (the (E, C) dispatch buffer re-tiles per step, so there is
     no static packed operand to contract against)."""
     cfg = ectx.quant
+    site_tap.consume_pending(a, a_axis)
     if cfg.enabled:
         a = quantize_activation(a, cfg, axis=a_axis)
         w = quantize_weight(w, cfg, axis=w_axis)

@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core import tap as site_tap
 from repro_torch.core.policy import QuantPlan, uniform_site_config
 from repro_torch.core.qlinear import NO_QUANT, QuantConfig
 
@@ -47,6 +48,10 @@ class ModelCtx:
         """The QuantConfig the linear layer at ``site`` (relative to
         :attr:`scope`, e.g. "attn.wq") executes under."""
         path = f"{self.scope}.{site}" if self.scope else site
+        # calibration probe: mark the activation tap with the site path the
+        # next engine contraction executes under (no-op without a tap, see
+        # repro_torch.core.tap)
+        site_tap.mark_site(path)
         if self.plan is not None:
             return self.plan.at(path)
         return uniform_site_config(self.quant, path)

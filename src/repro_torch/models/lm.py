@@ -465,6 +465,13 @@ def _audio_forward(params, x, cfg, ctx, *, mode, frames=None, caches=None,
 
 def _backbone(params, x, cfg, ctx, *, mode, caches=None, pos=None, pages=None,
               frames=None):
+    """x (B, S, d) through the family's blocks -> (hidden states, caches).
+    ``mode``: "train", the cache-free full-sequence forward the calibration
+    probe drives (no loss and no gradient: the train loop is not ported);
+    "prefill", the same forward returning the decode cache; "decode", one
+    token against ``caches``."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: expected train, prefill or decode")
     if cfg.family in KV_FAMILIES:
         return _transformer_forward(params, x, cfg, ctx, mode=mode,
                                     caches=caches, pos=pos, pages=pages)

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import engine
+from repro_torch.core import tap as site_tap
 from repro_torch.models.common import ModelCtx, dense
 from repro_torch.models.params import PSpec
 
@@ -113,6 +114,8 @@ def route(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx):
     chosen experts): the router's bf16 logits, their softmax in f32, top-k."""
     B, S, d = x.shape
     rq = ctx.site_quant("moe.router")
+    # the activation tap sees one record per call, the reference's rows
+    site_tap.consume_pending(x, -1)
     logits = engine.in_row_chunks(lambda c: dense(c, p["router"], quant=rq),
                                   x.reshape(B * S, d), ROW_CHUNK)
     probs = torch.softmax(logits.to(torch.float32).reshape(B, S, -1), dim=-1)
@@ -142,6 +145,9 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx
         of ``ROW_CHUNK`` buffer rows (the activations quantize per row, and
         a served tree's expert weights were quantized offline)."""
         ectx = engine.EngineCtx(quant=ctx.site_quant(site))
+        # one tap record of the whole buffer, in the reference's (batch,
+        # expert, capacity) row order, before the chunks
+        site_tap.consume_pending(a.reshape(E, B, C, -1).transpose(0, 1), -1)
         return engine.in_row_chunks(
             lambda c: engine.qdq_einsum("erd,edf->erf", c, w, ectx, a_axis=-1,
                                         w_axis=1), a, ROW_CHUNK, 1)

@@ -18,7 +18,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import __main__ as front_door
 from repro_torch import interop
+from repro_torch.calibrate import calibrate
 from repro_torch.configs import get_arch
 from repro_torch.core.formats import get_format
 from repro_torch.device import resolve_device
@@ -56,9 +58,18 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+# the calibration slice's modules, named so the scans below cannot miss them
+CALIBRATION_MODULES = ("core/tap.py", "core/higptq.py", "calibrate/__init__.py",
+                       "calibrate/probe.py", "calibrate/search.py",
+                       "calibrate/emit.py", "calibrate/run.py",
+                       "launch/calibrate.py", "__main__.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 20
+    for rel in CALIBRATION_MODULES:
+        assert REPO / "src" / "repro_torch" / rel in files, rel
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -71,6 +82,9 @@ def test_port_imports_in_a_process_without_jax():
             "import repro_torch.checkpoint\n"
             "import repro_torch.runtime.guard, repro_torch.runtime.faults\n"
             "import repro_torch.runtime.journal\n"
+            "import repro_torch.core.tap, repro_torch.core.higptq\n"
+            "import repro_torch.calibrate, repro_torch.launch.calibrate\n"
+            "import repro_torch.__main__\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
@@ -89,7 +103,8 @@ def no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "init_params", "prepare",
-                                   "serve", "interop", "launcher"])
+                                   "serve", "interop", "launcher", "calibrate",
+                                   "calibrate_launcher"])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     cfg = get_arch("qwen1.5-0.5b").reduced()
     calls = {
@@ -104,6 +119,9 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
         "interop": lambda: interop.params_from_jax({"w": [1.0, 2.0]}),
         "launcher": lambda: launch_serve.main(["--arch", "qwen1.5-0.5b",
                                                "--reduced"]),
+        "calibrate": lambda: calibrate("qwen1.5-0.5b", reduced=True),
+        "calibrate_launcher": lambda: front_door.main([
+            "calibrate", "--arch", "qwen1.5-0.5b", "--reduced"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
