@@ -3,8 +3,8 @@
 Each subcommand forwards argv to the matching ``repro_torch.launch.*``
 module, so ``python -m repro_torch calibrate --arch ...`` and
 ``python -m repro_torch.launch.calibrate --arch ...`` are the same program.
-The reference's ``train``, ``dryrun`` and ``breakdown`` commands are not
-ported yet.
+The reference's ``dryrun`` and ``breakdown`` commands (XLA/TPU tooling)
+are not ported yet.
 """
 import importlib
 import sys
@@ -13,6 +13,7 @@ COMMANDS = {
     "calibrate": ("repro_torch.launch.calibrate", "search a QuantPolicy from "
                   "calibration activations"),
     "serve": ("repro_torch.launch.serve", "offline packing + batched decode"),
+    "train": ("repro_torch.launch.train", "train-loop entry"),
     "profile": ("repro_torch.launch.profile", "device activity of a serve's "
                 "decode step"),
 }

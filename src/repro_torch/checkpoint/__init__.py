@@ -1,6 +1,7 @@
 """Checkpoints of parameter trees, byte-compatible with the reference's
-(``repro/checkpoint``); the async manager waits for the training slice."""
+(``repro/checkpoint``), and the async manager of the train loop."""
 from repro_torch.checkpoint.checkpoint import (  # noqa: F401
+    CheckpointManager,
     CheckpointCorruptError,
     CheckpointError,
     latest_step,

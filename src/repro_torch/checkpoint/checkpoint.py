@@ -1,6 +1,6 @@
 """Atomic, hashed checkpoints of a parameter tree (port of
 ``repro/checkpoint/checkpoint.py``: ``save_checkpoint``, ``latest_step``,
-``load_checkpoint``).
+``load_checkpoint`` and the async ``CheckpointManager``).
 
 Layout (one directory per step), byte-compatible with the reference::
 
@@ -11,8 +11,9 @@ Layout (one directory per step), byte-compatible with the reference::
 
 Each array is stored as its raw bytes in a flat uint8 ``.npy``, with the
 reference's dtype name in the manifest. Leaves come in the reference's
-pytree order: dict keys sorted at every level, a :class:`PackedW` as
-``(codes, meta)``. The port's conventions are translated on the way: an
+pytree order: dict keys sorted at every level, tuples and lists in
+order (a training checkpoint is ``(params, opt_state)``), a
+:class:`PackedW` as ``(codes, meta)``. The port's conventions are translated on the way: an
 int32 meta word of a PackedW is stored as ``uint32`` (the same bits), and
 bfloat16 is written and read as raw 16-bit words (no ``ml_dtypes``).
 
@@ -26,6 +27,7 @@ import json
 import os
 import re
 import shutil
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -87,15 +89,27 @@ def tensor_from_bits(a: np.ndarray, name: str, shape=None,
 
 def tree_leaves(tree, prefix: tuple = ()) -> list:
     """[(key path, leaf, is_meta)] in the reference's pytree order: dict
-    keys sorted at every level, a PackedW as its codes then its meta."""
+    keys sorted at every level, tuples and lists in order, a PackedW as its
+    codes then its meta."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out.extend(tree_leaves(tree[k], prefix + (k,)))
         return out
+    if isinstance(tree, (tuple, list)):
+        out = []
+        for i, node in enumerate(tree):
+            out.extend(tree_leaves(node, prefix + (str(i),)))
+        return out
     if isinstance(tree, PackedW):
         return [(prefix, tree.codes, False), (prefix, tree.meta, True)]
     return [(prefix, tree, False)]
+
+
+def tree_flatten(tree) -> list:
+    """The leaves alone, in :func:`tree_leaves` order (the inverse of
+    :func:`tree_unflatten`)."""
+    return [leaf for _, leaf, _ in tree_leaves(tree)]
 
 
 def tree_unflatten(target, leaves: list):
@@ -106,6 +120,8 @@ def tree_unflatten(target, leaves: list):
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(n) for n in node)
         if isinstance(node, PackedW):
             codes = next(it)
             return node._replace(codes=codes, meta=next(it))
@@ -122,6 +138,8 @@ def tree_description(tree) -> str:
     if isinstance(tree, dict):
         return "{" + ", ".join(f"{k!r}: {tree_description(tree[k])}"
                                for k in sorted(tree)) + "}"
+    if isinstance(tree, (tuple, list)):
+        return "(" + "".join(f"{tree_description(n)}, " for n in tree) + ")"
     if isinstance(tree, PackedW):
         return (f"PackedW[{tuple(tree.shape2d)}, {tuple(tree.axes2d)}, "
                 f"kernel_layout={tree.kernel_layout}](*, *)")
@@ -222,3 +240,65 @@ def load_checkpoint(directory: str, step: int, target_tree: Any, *,
     with open(os.path.join(path, "extra.json")) as f:
         extra = json.load(f)
     return tree_unflatten(target_tree, out), extra
+
+
+def _host_copy(tree):
+    """The tree with every tensor copied to host memory now (a copy even of
+    a CPU tensor: the train loop updates its buffers in place)."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_host_copy(n) for n in tree)
+    if isinstance(tree, PackedW):
+        return tree._replace(codes=_host_copy(tree.codes),
+                             meta=_host_copy(tree.meta))
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return np.array(tree, copy=True)
+
+
+class CheckpointManager:
+    """Async saves: the tree is copied to host memory before the save
+    thread starts (so the caller may update its buffers), the files are
+    written on the thread while training goes on, and the newest ``keep``
+    complete steps are kept."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def wait(self):
+        """Join the save in flight; re-raise its error, if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save_async(self, step: int, tree: Any, extra: Optional[dict] = None):
+        self.wait()
+        host_tree = _host_copy(tree)
+
+        def work():
+            try:
+                save_checkpoint(self.directory, step, host_tree, extra)
+                self._gc()
+            except Exception as e:  # surfaced by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def _gc(self):
+        steps = sorted(
+            int(m.group(1))
+            for name in os.listdir(self.directory)
+            if (m := re.fullmatch(r"step_(\d+)", name))
+            and os.path.exists(os.path.join(self.directory, name,
+                                            "manifest.json")))
+        for s in steps[: -self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)

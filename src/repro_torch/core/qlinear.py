@@ -1,10 +1,12 @@
 """Quantized linear algebra plumbing (port of ``repro/core/qlinear.py``):
-configs, fake-quant ops and the packed-weight container. The engine
-(:mod:`repro_torch.core.engine`) owns execution.
+configs, fake-quant ops with their straight-through estimator, ``qmatmul``
+and the packed-weight container. The engine (:mod:`repro_torch.core.engine`)
+owns execution.
 
-The port serves only, so the fake-quant ops return the quantized value
-directly (the reference's straight-through estimator only matters for
-gradients).
+The fake-quant ops return the quantized value. Where autograd records the
+operand they return it through the reference's straight-through estimator
+(:func:`_ste`): the forward value is the QDQ, the gradient the identity.
+Outside grad mode (serving) they return the QDQ itself.
 """
 from __future__ import annotations
 
@@ -48,12 +50,37 @@ class QuantConfig:
 NO_QUANT = QuantConfig()
 
 
+def _ste(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: forward = ``x_hat``, backward = identity.
+
+    The reference's ``x + stop_gradient(x_hat - x)``, evaluated in a wider
+    float (f32 for bf16/f16 operands, f64 for f32) and cast back to the
+    operand's dtype, as XLA evaluates it: the difference is then exact and
+    the sum is ``x_hat``'s value (a QDQ -0 comes back as +0, as in the
+    reference). The rounding inside QDQ (``torch.frexp``, ``torch.round``)
+    has a zero or no derivative; without the estimator a quantized matmul
+    passes no gradient back."""
+    wide = torch.float64 if x.dtype in (torch.float32, torch.float64) \
+        else torch.float32
+    xw = x.to(wide)
+    return (xw + (x_hat.to(wide) - xw).detach()).to(x.dtype)
+
+
+def _fake_quant(x: torch.Tensor, fmt: BFPFormat, axis: int) -> torch.Tensor:
+    """QDQ of ``x`` along ``axis``. Where autograd records ``x``, Algorithm 1
+    runs on ``x.detach()`` (its ~60 intermediates are never recorded) and
+    the result goes through :func:`_ste`."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return fmt.qdq(x, axis=axis)
+    return _ste(x, fmt.qdq(x.detach(), axis=axis))
+
+
 def quantize_activation(x: torch.Tensor, cfg: QuantConfig, axis: int = -1
                         ) -> torch.Tensor:
     fmt = cfg.format()
     if fmt is None or cfg.weights_only:
         return x
-    return fmt.qdq(x, axis=axis)
+    return _fake_quant(x, fmt, axis)
 
 
 def quantize_weight(w: torch.Tensor, cfg: QuantConfig, axis: int = 0
@@ -61,7 +88,7 @@ def quantize_weight(w: torch.Tensor, cfg: QuantConfig, axis: int = 0
     fmt = cfg.format()
     if fmt is None or cfg.offline_weights:
         return w
-    return fmt.qdq(w, axis=axis)
+    return _fake_quant(w, fmt, axis)
 
 
 def packable_contract_axes(key: str, ndim: int):
@@ -121,6 +148,20 @@ def quantize_params_offline(params, cfg: QuantConfig, *, plan=None,
         return q(parts, node)
 
     return walk(params, [])
+
+
+def qmatmul(x: torch.Tensor, w, cfg: QuantConfig = NO_QUANT, *,
+            contract_x: int = -1, contract_w: int = 0,
+            accum_dtype=None) -> torch.Tensor:
+    """``x @ w`` with both operands cast to ``cfg.fmt`` along the
+    contraction, through :func:`repro_torch.core.engine.matmul` (so
+    ``cfg.impl`` picks the path and ``w`` may be a :class:`PackedW`).
+    ``accum_dtype`` is the dot's output dtype (default ``x.dtype``)."""
+    from repro_torch.core import engine
+
+    return engine.matmul(x, w, engine.EngineCtx(quant=cfg),
+                         contract_x=contract_x, contract_w=contract_w,
+                         accum_dtype=accum_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -65,6 +65,17 @@ def params_from_jax(tree, device: DeviceLike = None):
     return tensor_from_numpy(tree, device)
 
 
+def opt_state_from_jax(state: dict, device: DeviceLike = None) -> dict:
+    """A reference AdamW state {"m": tree, "v": tree, "step": int32 scalar}
+    -> the port's (:mod:`repro_torch.optim.adamw`), same bits: f32 moments,
+    an int32 0-dim step."""
+    if set(state) != {"m", "v", "step"}:
+        raise ValueError(f"an AdamW state has m, v and step, got {sorted(state)}")
+    step = tensor_from_numpy(np.asarray(state["step"], np.int32), device)
+    return {"m": params_from_jax(state["m"], device),
+            "v": params_from_jax(state["v"], device), "step": step.reshape(())}
+
+
 def cache_from_jax(cache: dict, device: DeviceLike = None) -> dict:
     """A reference decode cache -> the port's, same bytes: contiguous
     {"kv": ..., "pos": ...}, paged {"kv": page pool (L, NP, F, P) leaves,

@@ -1,11 +1,18 @@
-"""Chunked flash attention (prefill) and bf16-cache decode attention, in
-plain PyTorch (port of ``repro/models/attention.py``, forward only).
+"""Chunked flash attention (prefill and training) and bf16-cache decode
+attention, in plain PyTorch (port of ``repro/models/attention.py``).
 
 Neither is a kernel in the reference (both are XLA there), so both stay
 plain tensor code here, in the reference's op order: f32 scores from bf16
 operands, NEG_INF masking, running (max, denominator, accumulator) per
 query chunk, probabilities rounded to the value dtype before the PV product.
 GQA is computed without repeating KV: q is viewed as (B, S, Hkv, rep, D).
+
+The backward is the reference's custom VJP as a ``torch.autograd.Function``
+(:class:`FlashMHA`): it saves the forward's log-sum-exp and recomputes the
+probabilities per (q-chunk, kv-chunk) tile in two passes, dq over q chunks
+and dk/dv over kv chunks, skipping the tiles the causal mask empties.
+Autograd through the forward's loop instead would keep every tile's
+probabilities alive until the backward.
 """
 from __future__ import annotations
 
@@ -28,17 +35,11 @@ def _chunks(n: int, c: int) -> int:
     return n // c
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    chunking: AttnChunking = AttnChunking()) -> torch.Tensor:
-    """Chunked attention. q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H,
-    D) in q.dtype. ``causal`` (prefill self-attention): query i sees keys
-    0..i; otherwise (the audio encoder, the decoder's cross-attention) every
-    query sees all Sk keys, and Sq may differ from Sk.
-
-    Query chunks run in a loop; for each, the KV chunks that hold any
-    visible key (all of them unless causal) fold into the online softmax.
-    """
+def _flash_forward(q, k, v, causal: bool, q_offset: int,
+                   chunking: AttnChunking, want_lse: bool):
+    """Chunked online-softmax forward -> (out (B, Sq, H, D) in q.dtype, lse
+    (B, Hkv, rep, Sq) f32 log-sum-exp of the scaled scores, or None unless
+    ``want_lse``)."""
     B, Sq, H, D = q.shape
     _, Sk, Hkv, _ = k.shape
     rep = H // Hkv
@@ -51,17 +52,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qc = q.reshape(B, nq, cq, Hkv, rep, D)
     kc = k.reshape(B, nk, ck, Hkv, D)
     vc = v.reshape(B, nk, ck, Hkv, D)
-    q_pos = torch.arange(Sq, device=dev).reshape(nq, cq)
+    q_pos = q_offset + torch.arange(Sq, device=dev).reshape(nq, cq)
     k_pos = torch.arange(Sk, device=dev).reshape(nk, ck)
 
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qblk = qc[:, qi].to(torch.float32)                  # (B, cq, Hkv, rep, D)
         m = torch.full((B, Hkv, rep, cq), NEG_INF, device=dev)
         l = torch.zeros((B, Hkv, rep, cq), device=dev)
         acc = torch.zeros((B, Hkv, rep, cq, D), device=dev)
-        n_live = min(((qi + 1) * cq - 1) // ck + 1, nk) if causal else nk
-        for ki in range(n_live):
+        for ki in range(_n_live(qi, causal, q_offset, cq, ck, nk)):
             kblk, vblk = kc[:, ki], vc[:, ki]
             s = torch.einsum("bqgrd,bkgd->bgrqk", qblk,
                              kblk.to(torch.float32)) * scale
@@ -79,7 +79,130 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = torch.clamp_min(l, 1e-30)
         out = acc / l[..., None]                            # (B,Hkv,rep,cq,D)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, cq, H, D))
-    return torch.cat(outs, dim=1).to(q.dtype)
+        if want_lse:
+            lses.append(m + torch.log(l))                   # (B,Hkv,rep,cq)
+    out = torch.cat(outs, dim=1).to(q.dtype)
+    return out, (torch.cat(lses, dim=-1) if want_lse else None)
+
+
+def _n_live(qi: int, causal: bool, q_offset: int, cq: int, ck: int,
+            nk: int) -> int:
+    """KV chunks that hold a key visible to query chunk ``qi`` (all of them
+    unless causal): the causal early exit."""
+    if not causal:
+        return nk
+    return min((q_offset + (qi + 1) * cq - 1) // ck + 1, nk)
+
+
+class FlashMHA(torch.autograd.Function):
+    """Differentiable flash attention (the reference's ``flash_mha`` custom
+    VJP): the forward saves (q, k, v, out, lse); the backward recomputes
+    each tile's probabilities from lse. Big operands stay in their dtype
+    (bf16) and every product accumulates in f32, as the reference's
+    ``preferred_element_type``; p and ds are rounded to q's dtype before
+    their products, as there."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, chunking):
+        out, lse = _flash_forward(q, k, v, causal, q_offset, chunking, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, chunking)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, chunking = ctx.args
+        f32 = torch.float32
+        B, Sq, H, D = q.shape
+        _, Sk, Hkv, _ = k.shape
+        rep = H // Hkv
+        scale = 1.0 / (D ** 0.5)
+        nq = _chunks(Sq, chunking.q_chunk)
+        nk = _chunks(Sk, chunking.k_chunk)
+        cq, ck = Sq // nq, Sk // nk
+        dev, dt16 = q.device, q.dtype
+
+        qc = q.reshape(B, nq, cq, Hkv, rep, D)
+        kc = k.reshape(B, nk, ck, Hkv, D)
+        vc = v.reshape(B, nk, ck, Hkv, D)
+        doc = dout.reshape(B, nq, cq, Hkv, rep, D)
+        lsec = lse.reshape(B, Hkv, rep, nq, cq)
+        # delta = rowsum(dout * out): (B, Hkv, rep, nq, cq)
+        delta = torch.einsum("bsgrd,bsgrd->bgrs",
+                             dout.reshape(B, Sq, Hkv, rep, D).to(f32),
+                             out.reshape(B, Sq, Hkv, rep, D).to(f32)
+                             ).reshape(B, Hkv, rep, nq, cq)
+        q_pos = q_offset + torch.arange(Sq, device=dev).reshape(nq, cq)
+        k_pos = torch.arange(Sk, device=dev).reshape(nk, ck)
+
+        def tile(qi, ki):
+            """p and ds of one (qi, ki) tile, f32 (B, Hkv, rep, cq, ck)."""
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qc[:, qi].to(f32),
+                             kc[:, ki].to(f32)) * scale
+            if causal:
+                mask = q_pos[qi][:, None] >= k_pos[ki][None, :]
+                s = torch.where(mask, s, NEG_INF)
+            p = torch.exp(s - lsec[:, :, :, qi, :, None])
+            dp = torch.einsum("bqgrd,bkgd->bgrqk", doc[:, qi].to(f32),
+                              vc[:, ki].to(f32))
+            return p, p * (dp - delta[:, :, :, qi, :, None])
+
+        # pass 1: dq, q chunk by q chunk over its live kv chunks
+        dqs = []
+        for qi in range(nq):
+            dq_blk = torch.zeros((B, cq, Hkv, rep, D), dtype=f32, device=dev)
+            for ki in range(_n_live(qi, causal, q_offset, cq, ck, nk)):
+                _, ds = tile(qi, ki)
+                dq_blk = dq_blk + torch.einsum(
+                    "bgrqk,bkgd->bqgrd", ds.to(dt16).to(f32),
+                    kc[:, ki].to(f32)) * scale
+            dqs.append(dq_blk)
+        dq = torch.stack(dqs, dim=1).reshape(B, Sq, H, D)
+
+        # pass 2: dk, dv, kv chunk by kv chunk over the q chunks that see it
+        dks, dvs = [], []
+        for ki in range(nk):
+            first = max((ki * ck - q_offset) // cq, 0) if causal else 0
+            dk_blk = torch.zeros((B, ck, Hkv, D), dtype=f32, device=dev)
+            dv_blk = torch.zeros((B, ck, Hkv, D), dtype=f32, device=dev)
+            for qi in range(first, nq):
+                p, ds = tile(qi, ki)
+                dv_blk = dv_blk + torch.einsum(
+                    "bgrqk,bqgrd->bkgd", p.to(dt16).to(f32), doc[:, qi].to(f32))
+                dk_blk = dk_blk + torch.einsum(
+                    "bgrqk,bqgrd->bkgd", ds.to(dt16).to(f32),
+                    qc[:, qi].to(f32)) * scale
+            dks.append(dk_blk)
+            dvs.append(dv_blk)
+        dk = torch.stack(dks, dim=1).reshape(B, Sk, Hkv, D)
+        dv = torch.stack(dvs, dim=1).reshape(B, Sk, Hkv, D)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              q_offset: int, chunking: AttnChunking) -> torch.Tensor:
+    """Differentiable flash attention (the training path)."""
+    return FlashMHA.apply(q, k, v, causal, q_offset, chunking)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    chunking: AttnChunking = AttnChunking()) -> torch.Tensor:
+    """Chunked attention. q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H,
+    D) in q.dtype. ``causal`` (prefill self-attention): query i (at absolute
+    position ``q_offset + i``) sees keys 0..q_offset + i; otherwise (the
+    audio encoder, the decoder's cross-attention) every query sees all Sk
+    keys, and Sq may differ from Sk.
+
+    Query chunks run in a loop; for each, the KV chunks that hold any
+    visible key fold into the online softmax. Where autograd records an
+    operand this is :func:`flash_mha` (the same forward, the flash
+    backward)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_mha(q, k, v, causal, q_offset, chunking)
+    return _flash_forward(q, k, v, causal, q_offset, chunking, False)[0]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,5 +1,6 @@
 """Shared model building blocks: per-site quantization context, norms, RoPE,
-the quantized dense helper (port of ``repro/models/common.py``)."""
+the quantized dense helper and the cross-entropy loss (port of
+``repro/models/common.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,12 +22,16 @@ class ModelCtx:
     :meth:`site_quant` for its config — from the resolved ``plan`` when one
     is attached, else from the uniform shim over the global ``quant``.
     ``scope`` is the param-tree prefix the current block runs under.
+    ``remat``: recompute each layer's activations in the backward
+    (``torch.utils.checkpoint``) instead of keeping them; it engages only
+    where autograd records the forward (see ``repro_torch.models.lm``).
     """
 
     quant: QuantConfig = NO_QUANT
     plan: Optional[QuantPlan] = None
     scope: str = ""
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
     attn_q_chunk: int = 512
     attn_k_chunk: int = 1024
     # Decode KV-tile override for the packed attention paths (None = the
@@ -104,3 +109,16 @@ def dense(x: torch.Tensor, w, *, quant: QuantConfig = NO_QUANT,
     (d_in, ...) dense or a :class:`PackedW`."""
     return engine.matmul(x, w, engine.EngineCtx(quant=quant), contract_x=-1,
                          contract_w=0, accum_dtype=accum_dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over tokens; logits (..., V) upcast to f32, labels (...)
+    integer; with ``mask``, the mask-weighted mean."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

@@ -1,10 +1,11 @@
 """Language model entry points, every family of the reference: dense and
 vlm (LLaVA's backbone on precomputed patch embeddings), moe, ssm (mamba2),
 hybrid (zamba2) and audio (whisper's encoder-decoder on precomputed frame
-embeddings) (port of ``repro/models/lm.py``, forward only).
+embeddings) (port of ``repro/models/lm.py``).
 
   abstract_params(cfg)                       -> PSpec tree (no allocation)
   init_params(cfg, seed, device=...)         -> materialized params
+  train_loss(params, batch, cfg, ctx)        -> scalar next-token CE loss
   init_cache / init_paged_cache             -> zero decode caches (slot and
                                                 paged schedulers)
   prefill(params, batch, cfg, ctx)           -> (last-token logits, decode cache)
@@ -25,6 +26,13 @@ carries its page table (``pages``) beside the pool, and every layer reads
 it. Decode caches are ``{"kv", "pos"}`` (transformer), ``{"layers", "pos"}``
 (ssm: conv windows and SSD state per layer), ``{"layers", "kv", "pos"}``
 (hybrid) and ``{"self", "cross", "pos"}`` (audio).
+
+Training (``mode="train"``, autograd recording): with ``ctx.remat`` each
+layer's forward runs under ``torch.utils.checkpoint`` (non-reentrant), the
+reference's ``jax.checkpoint`` of its layer scan: the transformer layers
+and the audio encoder's whenever ``ctx.remat``, the ssm layers, the
+hybrid's groups (shared block and its Mamba layers) and the audio decoder's
+layers only in train mode. Remat never engages where nothing is recorded.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import AttnChunking, flash_attention
-from repro_torch.models.common import ModelCtx, dense
+from repro_torch.models.common import ModelCtx, cross_entropy, dense
 from repro_torch.models.params import PSpec, init_from_specs, map_specs, stack_specs
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
@@ -257,6 +265,24 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def _recorded(params) -> bool:
+    """Autograd records this forward: grad mode is on and a parameter
+    requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    if isinstance(params, dict):
+        return any(_recorded(v) for v in params.values())
+    return isinstance(params, torch.Tensor) and params.requires_grad
+
+
+def _remat(fn, on: bool):
+    """``fn`` under non-reentrant activation checkpointing when ``on``."""
+    if not on:
+        return fn
+    return lambda *args, **kw: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, **kw)
+
+
 def _tblock_apply(p, x, cfg, ctx, *, mode, cache=None, pos=None, pages=None):
     h = tf.norm_apply(p["norm1"], x, cfg)
     if mode == "decode":
@@ -280,12 +306,14 @@ def _transformer_forward(params, x, cfg, ctx, *, mode, caches=None, pos=None,
     (L, B, S, Hkv, Dh); decode updates ``caches`` in place (through the page
     table ``pages``, the same for every layer, when they are a pool)."""
     bctx = ctx.scoped("blocks")
+    block = _remat(_tblock_apply,
+                   ctx.remat and mode == "train" and _recorded(params))
     kvs = []
     for i in range(cfg.n_layers):
         p_layer = layer_slice(params["blocks"], i)
         cache = layer_slice(caches, i) if mode == "decode" else None
-        x, kv = _tblock_apply(p_layer, x, cfg, bctx, mode=mode, cache=cache,
-                              pos=pos, pages=pages)
+        x, kv = block(p_layer, x, cfg, bctx, mode=mode, cache=cache, pos=pos,
+                      pages=pages)
         if mode == "prefill":
             kvs.append(kv)
     if mode == "prefill":
@@ -310,14 +338,16 @@ def _ssm_forward(params, x, cfg, ctx, *, mode, caches=None):
     """x (B, S, d). prefill returns the stacked per-layer caches
     {"conv_x", "conv_bc", "ssd"}; decode advances ``caches`` in place."""
     bctx = ctx.scoped("blocks")
+    full = _remat(mamba2.mamba_full,
+                  ctx.remat and mode == "train" and _recorded(params))
     per_layer = []
     for i in range(cfg.n_layers):
         p_layer = layer_slice(params["blocks"], i)
         if mode == "decode":
             out = mamba2.mamba_step(p_layer, x, layer_slice(caches, i), cfg, bctx)
         else:
-            out, cache = mamba2.mamba_full(p_layer, x, cfg, bctx,
-                                           return_cache=(mode == "prefill"))
+            out, cache = full(p_layer, x, cfg, bctx,
+                              return_cache=(mode == "prefill"))
             per_layer.append(cache)
         x = x + out
     if mode == "prefill":
@@ -352,9 +382,21 @@ def _hybrid_forward(params, x, cfg, ctx, *, mode, caches=None, pos=None):
         h2 = tf.norm_apply(shared["norm2"], h, cfg)
         return h + tf.mlp_apply(shared["mlp"], h2, cfg, sctx), new_kv
 
+    def group_apply(x, p_super):
+        """The train mode's group: the shared block, then ``per`` Mamba
+        layers (the unit the reference remats)."""
+        x, _ = shared_apply(x, None)
+        for j in range(per):
+            x = x + mamba2.mamba_full(layer_slice(p_super, j), x, cfg, bctx)[0]
+        return x
+
+    group = _remat(group_apply, ctx.remat and _recorded(params))
     kvs, groups = [], []
     for s in range(ns):
         p_super = layer_slice(params["blocks"], s)
+        if mode == "train":
+            x = group(x, p_super)
+            continue
         x, kv = shared_apply(x, layer_slice(caches["kv"], s)
                              if mode == "decode" else None)
         kvs.append(kv)
@@ -367,7 +409,7 @@ def _hybrid_forward(params, x, cfg, ctx, *, mode, caches=None, pos=None):
                     cfg, bctx)
             else:
                 out, mc = mamba2.mamba_full(p_layer, x, cfg, bctx,
-                                            return_cache=(mode == "prefill"))
+                                            return_cache=True)
                 mcaches.append(mc)
             x = x + out
         groups.append(mcaches)
@@ -390,13 +432,17 @@ def _encode(params, frames, cfg, ctx):
     x = (frames.to(ctx.compute_dtype)
          + sinusoid(torch.arange(S, device=frames.device), d).to(ctx.compute_dtype))
     ectx = ctx.scoped("enc_blocks")
-    for i in range(cfg.enc_layers):
-        p = layer_slice(params["enc_blocks"], i)
+
+    def block(p, x):
         h = tf.norm_apply(p["norm1"], x, cfg)
         a, _ = tf.attn_full(p["attn"], h, cfg, ectx, causal=False, use_rope=False)
         x = x + a
         h2 = tf.norm_apply(p["norm2"], x, cfg)
-        x = x + tf.mlp_apply(p["mlp"], h2, cfg, ectx)
+        return x + tf.mlp_apply(p["mlp"], h2, cfg, ectx)
+
+    block = _remat(block, ctx.remat and _recorded(params))
+    for i in range(cfg.enc_layers):
+        x = block(layer_slice(params["enc_blocks"], i), x)
     return tf.norm_apply(params["enc_norm"], x, cfg)
 
 
@@ -452,11 +498,13 @@ def _audio_forward(params, x, cfg, ctx, *, mode, frames=None, caches=None,
                 cross_kv=layer_slice(caches["cross"], i), pos=pos)
         return x, caches
     cross = _cross_kv(params, _encode(params, frames, cfg, ctx), cfg, ctx)
+    block = _remat(_dec_block_apply,
+                   ctx.remat and mode == "train" and _recorded(params))
     selfs = []
     for i in range(cfg.n_layers):
-        x, kv = _dec_block_apply(layer_slice(params["blocks"], i), x, cfg, bctx,
-                                 mode=mode, self_cache=None,
-                                 cross_kv=layer_slice(cross, i), pos=None)
+        x, kv = block(layer_slice(params["blocks"], i), x, cfg, bctx,
+                      mode=mode, self_cache=None,
+                      cross_kv=layer_slice(cross, i), pos=None)
         selfs.append(kv)
     if mode == "prefill":
         return x, {"self": _stack_trees(selfs), "cross": cross}
@@ -466,10 +514,10 @@ def _audio_forward(params, x, cfg, ctx, *, mode, frames=None, caches=None,
 def _backbone(params, x, cfg, ctx, *, mode, caches=None, pos=None, pages=None,
               frames=None):
     """x (B, S, d) through the family's blocks -> (hidden states, caches).
-    ``mode``: "train", the cache-free full-sequence forward the calibration
-    probe drives (no loss and no gradient: the train loop is not ported);
-    "prefill", the same forward returning the decode cache; "decode", one
-    token against ``caches``."""
+    ``mode``: "train", the cache-free full-sequence forward of
+    :func:`train_loss` and the calibration probe (layer remat per the
+    module's rule where autograd records it); "prefill", the same forward
+    returning the decode cache; "decode", one token against ``caches``."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: expected train, prefill or decode")
     if cfg.family in KV_FAMILIES:
@@ -484,6 +532,32 @@ def _backbone(params, x, cfg, ctx, *, mode, caches=None, pos=None, pages=None,
         return _audio_forward(params, x, cfg, ctx, mode=mode, frames=frames,
                               caches=caches, pos=pos)
     return _hybrid_forward(params, x, cfg, ctx, mode=mode, caches=caches, pos=pos)
+
+
+def train_loss(params: dict, batch: dict, cfg: ArchConfig, ctx: ModelCtx
+               ) -> torch.Tensor:
+    """Next-token CE loss over every position of the batch. ``batch`` is
+    {"tokens"} (B, S), {"embeds" (B, S, d), "labels" (B, S)} for the vlm
+    family, or {"frames" (B, S_enc, d), "tokens" (B, S)} for the audio
+    family (its decoder reads the tokens with sinusoidal positions)."""
+    _check_family(cfg)
+    if cfg.family == "audio":
+        labels = batch["tokens"]
+        x = embed_tokens(params, labels, cfg, ctx)
+        x = x + sinusoid(torch.arange(x.shape[1], device=x.device),
+                         cfg.d_model).to(x.dtype)
+        h, _ = _backbone(params, x, cfg, ctx, mode="train",
+                         frames=batch["frames"])
+    elif cfg.embeds_input:
+        labels = batch["labels"]
+        h, _ = _backbone(params, batch["embeds"].to(ctx.compute_dtype), cfg,
+                         ctx, mode="train")
+    else:
+        labels = batch["tokens"]
+        h, _ = _backbone(params, embed_tokens(params, labels, cfg, ctx), cfg,
+                         ctx, mode="train")
+    logits = lm_logits(params, h, cfg, ctx)
+    return cross_entropy(logits[:, :-1], labels[:, 1:])
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig, ctx: ModelCtx):

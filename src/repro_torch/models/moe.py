@@ -172,3 +172,17 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx
     for j in range(k):
         y = y + g[..., j, None] * ye[row[..., j]].to(torch.float32)
     return y.to(x.dtype)
+
+
+def aux_load_balance_loss(logits: torch.Tensor, idx: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-Transformer load-balancing auxiliary loss (for training): E
+    times the dot of the mean router probability per expert and the share
+    of tokens whose first choice it is. ``logits`` (..., E) the router's,
+    ``idx`` (..., k) the chosen experts. Not part of ``train_loss``, as in
+    the reference."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    me = torch.mean(probs.reshape(-1, n_experts), dim=0)
+    ce = torch.mean(F.one_hot(idx[..., 0].reshape(-1).long(), n_experts)
+                    .to(torch.float32), dim=0)
+    return n_experts * torch.sum(me * ce)

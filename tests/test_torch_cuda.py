@@ -39,7 +39,12 @@ launches kernel 1 + the decode form up to 32 rows, kernel 1 twice +
 kernel 5 above. Calibration, which launches no kernel, on the card against
 the CPU on the same weights and batches: HiGPTQ at least 99% equal values,
 the reduced qwen1.5-0.5b calibration's assignment and bytes equal and its
-per-site errors within rtol 2e-2.
+per-site errors within rtol 2e-2. Training, which launches no kernel
+either (impl qdq): the flash backward against autograd of the naive
+attention (f32, atol 3e-5), the engine's f32-out product differentiable on
+the card, one train step of the smoke arch card vs CPU (the loss within
+1e-4, every gradient within 5e-2 by relative norm), and kill and resume
+repeating the uninterrupted run's losses bitwise.
 """
 import dataclasses
 
@@ -718,3 +723,102 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# training (no kernel: impl qdq)
+# ---------------------------------------------------------------------------
+
+
+def test_flash_backward_matches_naive_attention_on_the_card(cuda):
+    from repro_torch.models.attention import AttnChunking, flash_mha
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for causal in (True, False):
+        qkv = [torch.randn((2, 96, 4, 16), generator=g, device=cuda)
+               .requires_grad_(True) for _ in range(3)]
+
+        def grads(fn):
+            return torch.autograd.grad(torch.sum(torch.sin(fn(*qkv))), qkv)
+
+        def naive(q, k, v):
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k) / 4.0
+            if causal:
+                mask = torch.ones(96, 96, dtype=torch.bool, device=cuda).tril()
+                s = torch.where(mask, s, -1e30)
+            return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+
+        got = grads(lambda q, k, v: flash_mha(q, k, v, causal, 0,
+                                              AttnChunking(32, 48)))
+        for a, b in zip(got, grads(naive)):
+            torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+
+
+def test_f32_out_product_is_differentiable_on_the_card(cuda):
+    """The head's bf16 x bf16 -> f32 product: ``torch.mm(out_dtype=)``
+    outside autograd, the upcast product where autograd records it; both
+    f32-close, and the recorded one has gradients."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(8, 256, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn(256, 512, generator=g, device=cuda).to(torch.bfloat16)
+    plain = engine.dot(x, w, torch.float32)
+    wr = w.clone().requires_grad_(True)
+    recorded = engine.dot(x, wr, torch.float32)
+    torch.testing.assert_close(recorded.detach(), plain, atol=1e-4, rtol=1e-5)
+    (dw,) = torch.autograd.grad(recorded.sum(), wr)
+    assert dw.dtype == torch.bfloat16 and bool(torch.isfinite(dw).all())
+
+
+def _smoke_step(device):
+    from repro_torch.configs import get_arch
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import _grads
+    from repro_torch.models import lm
+    from repro_torch.models.common import ModelCtx
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    params = lm.init_params(cfg, 0, device=device)
+    leaves = tree_flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = SyntheticLMDataset(cfg.vocab, 32, 4, seed=0).batch_at(0)
+    ctx = ModelCtx(quant=QuantConfig(fmt="hif4"), attn_q_chunk=32,
+                   attn_k_chunk=32)
+    loss = lm.train_loss(params, {"tokens": batch["tokens"].to(device)}, cfg,
+                         ctx)
+    return float(loss.detach()), [g.float().cpu() for g in _grads(loss, leaves)]
+
+
+def test_train_step_card_vs_cpu(cuda):
+    build.reset_launches()
+    loss_c, grads_c = _smoke_step(cuda)
+    assert not any(build.LAUNCHES.values()), build.LAUNCHES
+    loss_h, grads_h = _smoke_step(torch.device("cpu"))
+    assert abs(loss_c - loss_h) <= 1e-4 * abs(loss_h)
+    for a, b in zip(grads_c, grads_h):
+        rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+        assert rel <= 5e-2, rel
+
+
+def test_kill_and_resume_on_the_card(cuda, tmp_path):
+    from repro_torch.configs import get_arch
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.models.common import ModelCtx
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainLoopConfig, train
+
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    ctx = ModelCtx(quant=QuantConfig(fmt="hif4"), attn_q_chunk=32,
+                   attn_k_chunk=32)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+
+    def run(steps, directory=None):
+        loop = TrainLoopConfig(steps=steps, global_batch=4, seq_len=32,
+                               checkpoint_every=4, checkpoint_dir=directory)
+        return train(cfg, ctx, loop, opt, device=cuda)[2]["loss"]
+
+    full = run(10)
+    run(6, str(tmp_path))
+    assert run(10, str(tmp_path)) == full[-4:]

@@ -4,9 +4,10 @@
   anything of the JAX package (an AST scan of every import).
 * Entry points run on ``cuda`` unless the caller asks for the CPU: without a
   CUDA device they raise instead of running on the CPU.
-* What the port does not carry yet (the train mode) is absent and raises
-  on use; what it now carries (the NVFP4/MXFP4 formats, the journal, every
-  architecture and family) resolves.
+* What the port does not carry yet (the reference's XLA/TPU tooling:
+  ``dryrun``, ``breakdown``) is absent and raises on use; what it now
+  carries (the NVFP4/MXFP4 formats, the journal, every architecture and
+  family, the train mode) resolves.
 """
 import ast
 import importlib
@@ -25,6 +26,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core.formats import get_format
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
 from repro_torch.models.common import ModelCtx
 from repro_torch.runtime.guard import RecoveryError
@@ -34,6 +36,7 @@ from repro_torch.runtime.serve_loop import (
     serve,
     serve_requests,
 )
+from repro_torch.runtime.train_loop import TrainLoopConfig, train
 
 # One intra-op thread: the suite runs several pytest-xdist workers at once,
 # and torch's default pool (a thread per core in each) oversubscribes the CPU.
@@ -63,12 +66,19 @@ CALIBRATION_MODULES = ("core/tap.py", "core/higptq.py", "calibrate/__init__.py",
                        "calibrate/probe.py", "calibrate/search.py",
                        "calibrate/emit.py", "calibrate/run.py",
                        "launch/calibrate.py", "__main__.py")
+# the training slice's modules
+TRAINING_MODULES = ("core/qlinear.py", "models/attention.py", "models/common.py",
+                    "models/lm.py", "models/moe.py", "data/__init__.py",
+                    "data/synthetic.py", "optim/__init__.py", "optim/adamw.py",
+                    "optim/grad_compress.py", "launch/steps.py",
+                    "checkpoint/checkpoint.py", "runtime/train_loop.py",
+                    "launch/train.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 20
-    for rel in CALIBRATION_MODULES:
+    for rel in CALIBRATION_MODULES + TRAINING_MODULES:
         assert REPO / "src" / "repro_torch" / rel in files, rel
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imported_modules(f)
@@ -84,6 +94,9 @@ def test_port_imports_in_a_process_without_jax():
             "import repro_torch.runtime.journal\n"
             "import repro_torch.core.tap, repro_torch.core.higptq\n"
             "import repro_torch.calibrate, repro_torch.launch.calibrate\n"
+            "import repro_torch.data, repro_torch.optim.adamw\n"
+            "import repro_torch.optim.grad_compress, repro_torch.launch.steps\n"
+            "import repro_torch.runtime.train_loop, repro_torch.launch.train\n"
             "import repro_torch.__main__\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -104,7 +117,8 @@ def no_cuda():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "init_params", "prepare",
                                    "serve", "interop", "launcher", "calibrate",
-                                   "calibrate_launcher"])
+                                   "calibrate_launcher", "train",
+                                   "train_launcher"])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     cfg = get_arch("qwen1.5-0.5b").reduced()
     calls = {
@@ -122,6 +136,9 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
         "calibrate": lambda: calibrate("qwen1.5-0.5b", reduced=True),
         "calibrate_launcher": lambda: front_door.main([
             "calibrate", "--arch", "qwen1.5-0.5b", "--reduced"]),
+        "train": lambda: train(cfg, ModelCtx(), TrainLoopConfig(steps=1)),
+        "train_launcher": lambda: launch_train.main([
+            "--arch", "qwen1.5-0.5b", "--reduced", "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -142,11 +159,15 @@ def test_not_yet_ported_parts_raise():
         serve_requests(cfg, lm.init_params(cfg, 0, device="cpu"),
                        [torch.zeros(8, dtype=torch.long)], ModelCtx(),
                        ServeConfig(max_new_tokens=2), device="cpu", resume=True)
-    # every family is ported; the train mode (the reference's train_loss
-    # and repro.launch.train) is not
+    # every family and the train mode (the reference's train_loss and
+    # repro.launch.train) are ported; the XLA/TPU tooling is not
     assert "enc_blocks" in lm.abstract_params(get_arch("whisper-tiny"))
-    assert not hasattr(lm, "train_loss")
-    with pytest.raises(ModuleNotFoundError, match="repro_torch.launch.train"):
-        importlib.import_module("repro_torch.launch.train")
+    assert callable(lm.train_loss)
+    assert importlib.import_module("repro_torch.launch.train") is launch_train
+    assert "train" in front_door.COMMANDS
+    for tool in ("dryrun", "breakdown"):
+        assert tool not in front_door.COMMANDS
+        with pytest.raises(ModuleNotFoundError, match=f"repro_torch.launch.{tool}"):
+            importlib.import_module(f"repro_torch.launch.{tool}")
     with pytest.raises(ValueError):
         get_format("fp3")

@@ -220,12 +220,12 @@ def test_launcher_serves_on_cpu():
 
 
 def test_launcher_refuses_flags_not_yet_ported():
-    """Every serve flag and family is ported; the train mode (the
-    reference's ``repro.launch.train``) is not, and asking for it exits
-    nonzero, as does an arch neither package has."""
+    """Every serve flag and family and the train mode are ported; the
+    reference's XLA/TPU tooling (``repro.launch.dryrun``) is not, and asking
+    for it exits nonzero, as does an arch neither package has."""
     out = _launch("--arch", "whisper-tiny", "--reduced", "--device", "cpu",
-                  module="repro_torch.launch.train")
-    assert out.returncode != 0 and "repro_torch.launch.train" in out.stderr
+                  module="repro_torch.launch.dryrun")
+    assert out.returncode != 0 and "repro_torch.launch.dryrun" in out.stderr
     out = _launch("--arch", "whisper-base", "--reduced", "--device", "cpu")
     assert out.returncode == 2 and "unknown arch 'whisper-base'" in out.stderr
 
