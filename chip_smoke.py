@@ -65,12 +65,13 @@ Phases (any failure ends the run with a nonzero exit):
              vs CPU on the card's final hidden state. Greedy tokens must
              agree, or differ only where the reference's top-2 logit gap is
              within that tolerance.
-7. paged   — the paged path at full width and depth: 12 requests sharing a
+7. paged   — the paged path at full width on the first 12 of 24 layers
+             (a cut for time): 12 requests sharing a
              256-token prefix through 8 slots and a 24-page HiF4 pool
              (P=64, 32 new tokens, decode chunk 8), which shows shared-prefix
              hits, a COW copy, LRU evictions and a preemption; every
              request's tokens must equal its solo serve at attn_kv_block=P,
-             kernel 4 must launch exactly 24 x the decode steps and kernel 3
+             kernel 4 must launch exactly 12 x the decode steps and kernel 3
              never.
 8. robust  — the same requests and pool, the weights on the first 6 of
              24 layers: a serving artifact saved
@@ -95,7 +96,7 @@ Phases (any failure ends the run with a nonzero exit):
              kernels 3 and 4 at their new head layouts (rep 4 / D 128, rep
              12 / D 192, rep 2 / D 64), all timed; lockstep serves (paper-
              iv, impl packed, HiF4 KV, batch 8, prompt 480) at full width
-             of qwen3-4b on its first 18 of 36 layers and
+             of qwen3-4b (all 36 layers) and
              granite-moe-1b-a400m on 12 of 24 (32 new tokens)
              and nemotron-4-340b on its first 2 of 96 layers
              (8 new tokens, the packing's peak memory), exact launches per
@@ -180,6 +181,26 @@ Phases (any failure ends the run with a nonzero exit):
              phase e2e's card / card plain / CPU comparison on the trained
              weights (shares printed beside the init-scale ones, not
              bounded; card vs card plain bitwise; tokens checked).
+
+14. dryrun — the dry run (repro_torch.launch.dryrun, on meta on this
+             machine's CPU) held against real runs of the same steps at full
+             width and depth on the card, weights drawn on the card from
+             --seed: qwen1.5-0.5b train_4k (batch 256 cut to 2, impl qdq,
+             remat, one step), prefill_32k (batch 32 cut to 1) and
+             decode_32k (batch 128 cut to 8, a 24 GiB bf16 cache),
+             zamba2-2.7b and mamba2-1.3b long_500k (batch 1, no cut): the
+             residency exactly the bytes of the tensors the card run
+             allocates, peak_bytes_est within 10% of
+             torch.cuda.max_memory_allocated(), the matmul FLOPs equal to a
+             FlopCounterMode count of the card run, the step time printed
+             beside max(t_compute, t_memory) (a reading, no bound); then the
+             serving route at the assignment's shapes (paper-iv, impl packed,
+             HiF4 KV): a 32 768-token qwen1.5-0.5b prefill at batch 1 and one
+             decode step from its cache, exact launches, prefill logits
+             bitwise and greedy tokens equal to the plain versions' run,
+             kernels 1 and 2 (M = 32 768) bitwise and kernel 3 (S = 32 770)
+             within rtol 2^-7, atol 1e-3 and a relative norm of 1e-3 of
+             their plain versions on layer 0's operands, each timed.
 
 The last lines are the kernel records as one JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. The script imports
@@ -1879,7 +1900,10 @@ def _top2(cfg, params, ctx, prompt, emitted, device, *, plain: bool):
 # K/V bytes do not depend on the prompt around it.
 PAGED = {"page_tokens": 64, "new_tokens": 32, "decode_chunk": 8, "slots": 8,
          "prefix": 256, "tails": (224, 96, 160, 32, 192, 128, 64, 208, 144, 48,
-                                  176), "kv_pages": 24, "flash_chunk": 16}
+                                  176), "kv_pages": 24, "flash_chunk": 16,
+         # the first 12 of qwen1.5-0.5b's 24 layers: a cut for the script's
+         # time (the dryrun phase's 32 768-token prefills came after it)
+         "layers": 12}
 
 
 def paged_requests(vocab: int, seed: int, tails=PAGED["tails"]) -> list:
@@ -1956,13 +1980,14 @@ def paged_ctx(cfg):
 
 
 def phase_paged(dev, seed, records):
-    """The paged path at full width and depth: serve_requests with the HiF4
-    page pool (kernel 4 for every layer of every decode step), held request
-    by request against a solo serve at attn_kv_block = P."""
+    """The paged path at full width on ``PAGED["layers"]`` layers:
+    serve_requests with the HiF4 page pool (kernel 4 for every layer of
+    every decode step), held request by request against a solo serve at
+    attn_kv_block = P."""
     from repro_torch.configs import get_arch
     from repro_torch.runtime.serve_loop import prepare_params_for_serving
 
-    cfg = get_arch("qwen1.5-0.5b")
+    cfg = dataclasses.replace(get_arch("qwen1.5-0.5b"), n_layers=PAGED["layers"])
     ctx = paged_ctx(cfg)
     params = paged_weights(cfg, seed)
     sparams = prepare_params_for_serving(params, cfg, ctx.plan, device=dev)
@@ -4329,6 +4354,331 @@ def phase_train(dev, seed):
     part("done")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the dry run held against the card
+# ---------------------------------------------------------------------------
+
+# (arch, shape, batch cut): the dry run at the cut batch against real runs of
+# the same steps at full width and depth; None keeps the shape's batch
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", 2),
+                ("qwen1.5-0.5b", "prefill_32k", 1),
+                ("qwen1.5-0.5b", "decode_32k", 8),
+                ("zamba2-2.7b", "long_500k", None),
+                ("mamba2-1.3b", "long_500k", None))
+# the dry run's peak against the card's max_memory_allocated, relative
+DRYRUN_PEAK_REL = 0.10
+# timed runs of a cell's step after the counted one (the least is printed):
+# one of a train or prefill step (seconds each), three of a decode step
+DRYRUN_TIMED = {"train": 1, "prefill": 1, "decode": 3}
+# the serving route at the assignment's shapes: a 32 768-token prefill at
+# batch 1 (kernels 1 and 2 at M = 32 768), then one decode step from that
+# HiF4 cache (kernel 2's decode form, kernel 3 over 32 768 tokens)
+DRYRUN_SERVE = {"arch": "qwen1.5-0.5b", "prompt": 32768, "new": 2}
+# kernel 3 over 32 769 near-uniformly weighted tokens gives outputs of about
+# |v| / sqrt(S), not far above the elementwise atol of 1e-3: it is also held
+# by ||y - ref|| / ||ref||, far below the ~8% a tile dropped or counted
+# twice would make
+DRYRUN_ATTN_REL = 1e-3
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of the distinct storages of a tree of tensors."""
+    import torch
+
+    seen: dict = {}
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, torch.Tensor):
+            st = node.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+
+    walk(tree)
+    return sum(seen.values())
+
+
+def _real_inputs(specs, shape, vocab, gen, dev):
+    """The step's inputs after the params on the card: token ids drawn from
+    ``gen``, everything else zeros; a decode cache's position at the last
+    slot (the cache full)."""
+    import torch
+    from repro_torch.models.params import PSpec, map_specs
+
+    def leaf(p: PSpec):
+        if p.dtype == torch.int32 and p.shape and p.init == "zeros" \
+                and shape.kind != "decode":
+            return torch.randint(0, vocab, p.shape, generator=gen,
+                                 dtype=torch.int32).to(dev)
+        return torch.zeros(p.shape, dtype=p.dtype, device=dev)
+
+    out = [leaf(s) if isinstance(s, PSpec) else map_specs(leaf, s)
+           for s in specs]
+    if shape.kind == "decode":
+        out[0]["pos"].fill_(shape.seq_len - 1)
+    return out
+
+
+def dryrun_cell(dev, seed, arch, shape_name, batch) -> dict:
+    """One cell: the dry run (on meta, here) at the cut batch, then the same
+    step on the card: residency exact, the peak within DRYRUN_PEAK_REL, the
+    matmul FLOPs equal to a FlopCounterMode count of the card run, the step
+    time beside max(t_compute, t_memory)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    rec, _, _ = dryrun.lower_cell(arch, shape_name, batch=batch)
+    dry_s = time.perf_counter() - t0
+    shape = dataclasses.replace(get_shape(shape_name),
+                                global_batch=rec["global_batch"])
+    specs = dryrun.cell_specs(cfg, shape)
+    gen = torch.Generator().manual_seed(seed + 14)
+    params = lm.init_params(cfg, seed, device=dev, draw_on_device=True)
+    if shape.kind == "train":
+        args = [params, adamw_init(params)] + _real_inputs(
+            specs[2:], shape, cfg.vocab, gen, dev)
+        names = ("params", "opt_state")
+    else:
+        args = [params] + _real_inputs(specs[1:], shape, cfg.vocab, gen, dev)
+        names = ("params", "kv_cache") if shape.kind == "decode" else ("params",)
+    resident = rec["resident_bytes_per_device"]
+    held = {n: _tree_bytes(a) for n, a in zip(names, args)}
+    check(held == resident, f"{arch} {shape_name}: the card holds {held} B, "
+          f"the dry run says {resident}")
+    check(sum(_tree_bytes(a) for a in args) == rec["memory"]["argument_bytes"],
+          f"{arch} {shape_name}: argument bytes differ")
+    step = dryrun.make_cell_step(cfg, shape, microbatches=rec["microbatches"])
+    grad = (contextlib.nullcontext if shape.kind == "train" else torch.no_grad)
+    build.reset_launches()
+    with FlopCounterMode(display=False) as fc, grad():
+        out = step(*args)                 # also the warm-up
+    torch.cuda.synchronize()
+    del out
+    flops = fc.get_total_flops()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DRYRUN_TIMED[shape.kind]):
+        t0 = time.perf_counter()
+        with grad():
+            out = step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del out
+    step_ms = min(times)
+    peak = torch.cuda.max_memory_allocated()
+    check(not any(build.LAUNCHES.values()), f"{arch} {shape_name}: a kernel "
+          f"launched in a plain (impl qdq) step: {build.LAUNCHES}")
+    mem, roof = rec["memory"], rec["roofline"]
+    est = mem["peak_bytes_est"]
+    bound_ms = max(roof["t_compute_s"], roof["t_memory_s"]) * 1e3
+    cut = ("" if batch is None else
+           f" (cut from {get_shape(shape_name).global_batch})")
+    print(f"  {arch} {shape_name} batch {shape.global_batch}{cut}: dry run "
+          f"{dry_s:.1f} s on meta; residency {held} B exact; peak est "
+          f"{est / 2**30:.3f} GiB vs card {peak / 2**30:.3f} GiB (ratio "
+          f"{est / peak:.4f}; in the step est "
+          f"{(est - mem['argument_bytes']) / 2**30:.3f} vs card "
+          f"{(peak - base) / 2**30:.3f} GiB); matmul FLOPs dry "
+          f"{roof['matmul_flops_per_device']:.0f} card {flops}; step "
+          f"{step_ms:.2f} ms (least of {[round(t, 2) for t in times]}) vs max(t_compute {roof['t_compute_s'] * 1e3:.3f}, "
+          f"t_memory {roof['t_memory_s'] * 1e3:.3f}) = {bound_ms:.3f} ms: "
+          f"ratio {step_ms / bound_ms:.2f}; {card_line()}")
+    check(abs(est / peak - 1) <= DRYRUN_PEAK_REL,
+          f"{arch} {shape_name}: peak est {est} B vs the card's {peak} B, "
+          f"beyond {DRYRUN_PEAK_REL:.0%}")
+    check(flops == roof["matmul_flops_per_device"],
+          f"{arch} {shape_name}: matmul FLOPs dry "
+          f"{roof['matmul_flops_per_device']} != card {flops}")
+    del args, params, step
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "bound_ms": bound_ms, "peak": peak, "est": est}
+
+
+@contextlib.contextmanager
+def first_operands():
+    """Record the operands of the first engine call of kernels 1, 2 and 3 at
+    each shape (layer 0's): {(kernel, shape): args}."""
+    from repro_torch.core import engine
+
+    seen: dict = {}
+    saved = (engine.hif4_quantize, engine.fused_packed_matmul,
+             engine.fused_decode_attention)
+    quant, packed, attn = saved
+
+    def rec_quant(x):
+        seen.setdefault(("hif4_quantize", tuple(x.shape)), (x,))
+        return quant(x)
+
+    def rec_packed(ai, asc, codes, meta, dt):
+        key = ("fused_packed_matmul", (tuple(ai.shape), tuple(codes.shape)))
+        seen.setdefault(key, (ai, asc, codes, meta, dt))
+        return packed(ai, asc, codes, meta, dt)
+
+    def rec_attn(q, k, v, length, **kw):
+        seen.setdefault(("fused_decode_attention", tuple(q.shape)),
+                        (q, k, v, length, kw))
+        return attn(q, k, v, length, **kw)
+
+    engine.hif4_quantize, engine.fused_packed_matmul = rec_quant, rec_packed
+    engine.fused_decode_attention = rec_attn
+    try:
+        yield seen
+    finally:
+        (engine.hif4_quantize, engine.fused_packed_matmul,
+         engine.fused_decode_attention) = saved
+
+
+def dryrun_serve(dev, seed, records) -> None:
+    """The serving route at the assignment's shapes (paper-iv, impl packed,
+    HiF4 KV): a 32 768-token prefill at batch 1 and one decode step from
+    its cache; exact launches; greedy tokens and prefill logits against the
+    plain versions' run; kernels 1 and 2 bitwise and kernel 3 within rtol
+    2^-7, atol 1e-3 and a relative norm of DRYRUN_ATTN_REL of their plain
+    versions on layer 0's operands, timed."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import kvcache
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_attention import (
+        fused_decode_attention, fused_decode_attention_plain)
+    from repro_torch.kernels.fused_matmul import (
+        fused_packed_matmul, fused_packed_matmul_plain)
+    from repro_torch.kernels.hif4_quant import absorbed_activation, hif4_quantize
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve_loop import prepare_params_for_serving
+
+    arch, prompt, new = (DRYRUN_SERVE[k] for k in ("arch", "prompt", "new"))
+    cfg = get_arch(arch)
+    ctx = serving_setup(cfg)
+    raw = lm.init_params(cfg, seed, device=dev, draw_on_device=True)
+    sparams = prepare_params_for_serving(raw, cfg, ctx.plan, device=dev)
+    del raw
+    gen = torch.Generator().manual_seed(seed + 15)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, prompt),
+                                     generator=gen).to(dev)}
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with first_operands() as ops, attention_capacities() as caps:
+        toks_k, lg_k = greedy_steps(cfg, sparams, batch, ctx, new, new)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches, per_shape = dict(build.LAUNCHES), dict(build.SHAPE_LAUNCHES)
+    want, want_shapes = expected_launches(cfg, _packed_shapes(sparams), new - 1,
+                                          1, prompt)
+    print(f"  {arch} prefill {prompt} tokens + {new - 1} decode step (paper-iv, "
+          f"packed, HiF4 KV) in {serve_s:.1f} s; launches {launches}; "
+          f"kernel 3 per capacity {caps}")
+    check(launches == want, f"serve at {prompt}: launches {launches} != {want}")
+    check(per_shape == want_shapes, f"serve at {prompt}: launches per shape "
+          f"{per_shape} != {want_shapes}")
+    with plain_versions():
+        toks_p, lg_p = greedy_steps(cfg, sparams, batch, ctx, new, new)
+    same = torch.equal(lg_k[0].view(torch.int32), lg_p[0].view(torch.int32))
+    print(f"  kernels vs plain versions: prefill logits bitwise {same}; greedy "
+          f"tokens {toks_k.tolist()} vs {toks_p.tolist()}")
+    check(same, f"serve at {prompt}: prefill logits differ from the plain run")
+    check(torch.equal(toks_k, toks_p), f"serve at {prompt}: greedy tokens "
+          f"{toks_k.tolist()} != the plain versions' {toks_p.tolist()}")
+    for key, args in sorted(ops.items(), key=lambda kv: str(kv[0])):
+        kernel, shp = key
+        if kernel == "hif4_quantize":
+            (x,) = args
+            m, k = x.shape
+            ki, ks = hif4_quantize(x)
+            pi, ps = absorbed_activation(x)
+            err = 0.0
+            ok = torch.equal(ki, pi) and torch.equal(ks.view(torch.int32),
+                                                     ps.view(torch.int32))
+            t = timed(hif4_quantize, [(x,)], iters=20)
+            plain_ms = cuda_ms(absorbed_activation, [(x,)], iters=3, warmup=1)
+            bound_ms, bound_by, library_ms = _quantize_bound_ms(m, k), "bytes", None
+            label, mkn = f"x ({m}, {k}) bf16, layer 0", (m, k)
+        elif kernel == "fused_packed_matmul":
+            ai, asc, codes, meta, dt = args
+            m, k = ai.shape
+            y = fused_packed_matmul(ai, asc, codes, meta, dt)
+            ref = fused_packed_matmul_plain(ai, asc, codes, meta, dt)
+            n = y.shape[1]
+            err, ok = 0.0, torch.equal(_bits(y), _bits(ref))
+            del y, ref
+            t = timed(fused_packed_matmul, [args], iters=20)
+            plain_ms = cuda_ms(fused_packed_matmul_plain, [args], iters=1,
+                               warmup=1)
+            bound_ms, bound_by, _ = _prefill_bound_ms(m, k, n)
+            w = torch.randn(k, n, generator=torch.Generator(device=dev)
+                            .manual_seed(seed), device=dev).to(torch.bfloat16)
+            xb = torch.randn(m, k, device=dev).to(torch.bfloat16)
+            library_ms = cuda_ms(torch.matmul, [(xb, w)], iters=20)
+            del w, xb
+            label, mkn = f"M={m} K={k} N={n} bf16 out, layer 0", (m, k, n)
+        else:
+            q, kc, vc, length, kw = args
+            y = fused_decode_attention(q, kc, vc, length, **kw)
+            ref = fused_decode_attention_plain(q, kc, vc, length,
+                                               kw["n_kv_heads"], kw["d_head"],
+                                               block_kv=kw.get("block_kv"))
+            rf = ref.float()
+            e = (y.float() - rf).abs()
+            err = float(e.max())
+            rel = float(torch.linalg.vector_norm(e) / torch.linalg.vector_norm(rf))
+            ok = (bool((e <= 1e-3 + 2 ** -7 * rf.abs()).all())
+                  and rel <= DRYRUN_ATTN_REL)
+            ref_abs = (float(rf.abs().median()), float(rf.abs().max()))
+            cap = kvcache.seq_capacity(kc)
+            t = timed(lambda *a: fused_decode_attention(*a, **kw),
+                      [(q, kc, vc, length)], iters=50)
+            plain_ms = cuda_ms(lambda *a: fused_decode_attention_plain(
+                *a, kw["n_kv_heads"], kw["d_head"], block_kv=kw.get("block_kv")),
+                [(q, kc, vc, length)], iters=2, warmup=1)
+            bound_ms = attention_bound_ms(kw["n_kv_heads"], kw["d_head"], length,
+                                          None, cap, heads=q.shape[1])
+            bound_by, library_ms = "bytes", None
+            label = (f"B={q.shape[0]} Hkv={kw['n_kv_heads']} H={q.shape[1]} "
+                     f"D={kw['d_head']} S={cap} (length {int(length[0])}), "
+                     f"layer 0")
+            mkn = None
+        print(f"  {kernel} {label}: {'bitwise' if kernel != 'fused_decode_attention' else f'max |d| {err:.3e}, relative norm {rel:.3e} (limit {DRYRUN_ATTN_REL:g}), |ref| median {ref_abs[0]:.3e} max {ref_abs[1]:.3e}'} "
+              f"vs plain {'ok' if ok else 'FAILED'}; {_times(t)} plain_ms="
+              f"{plain_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}) library_ms="
+              f"{'n/a' if library_ms is None else f'{library_ms:.5f}'}")
+        check(ok, f"{kernel} {label}: disagrees with its plain version")
+        launched = (caps.get(cap, 0) if mkn is None
+                    else per_shape.get((kernel, mkn), 0))
+        records.setdefault(kernel, {}).setdefault("dryrun", []).append(
+            {**t, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms,
+             "launches": launched, "max_abs_err": err, "arch": arch,
+             "shape": label})
+    check({k[0] for k in ops} == {"hif4_quantize", "fused_packed_matmul",
+                                  "fused_decode_attention"},
+          f"serve at {prompt}: kernels seen {sorted(ops)}")
+    del sparams, ops, batch
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(dev, seed, records):
+    import torch
+
+    for arch, shape, batch in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        dryrun_cell(dev, seed, arch, shape, batch)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dryrun_serve(dev, seed, records)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of repro_torch")
     ap.add_argument("--seed", type=int, default=0,
@@ -4337,7 +4687,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (kernels,serve,pallas,"
                          "e2e,paged,robust,families,ssm,encdec,calibrate,"
-                         "train); default all")
+                         "train,dryrun); default all")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
     # before cuBLAS first initializes: phase train runs the train loop under
@@ -4379,7 +4729,8 @@ def main(argv=None) -> int:
               ("ssm", lambda: phase_ssm(dev, args.seed, records)),
               ("encdec", lambda: phase_encdec(dev, args.seed, records)),
               ("calibrate", lambda: phase_calibrate(dev, args.seed)),
-              ("train", lambda: phase_train(dev, args.seed))]
+              ("train", lambda: phase_train(dev, args.seed)),
+              ("dryrun", lambda: phase_dryrun(dev, args.seed, records))]
     try:
         print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")

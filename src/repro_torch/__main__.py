@@ -3,8 +3,8 @@
 Each subcommand forwards argv to the matching ``repro_torch.launch.*``
 module, so ``python -m repro_torch calibrate --arch ...`` and
 ``python -m repro_torch.launch.calibrate --arch ...`` are the same program.
-The reference's ``dryrun`` and ``breakdown`` commands (XLA/TPU tooling)
-are not ported yet.
+``dryrun`` and ``breakdown`` cost every cell on the ``meta`` device and need
+no card.
 """
 import importlib
 import sys
@@ -16,6 +16,10 @@ COMMANDS = {
     "train": ("repro_torch.launch.train", "train-loop entry"),
     "profile": ("repro_torch.launch.profile", "device activity of a serve's "
                 "decode step"),
+    "dryrun": ("repro_torch.launch.dryrun", "every (arch x shape) cell costed "
+               "on meta: residency, peak, roofline terms"),
+    "breakdown": ("repro_torch.launch.breakdown", "where a dry-run cell's "
+                  "bytes and FLOPs live"),
 }
 
 

@@ -155,6 +155,43 @@ class ArchConfig:
 
 
 # ---------------------------------------------------------------------------
+# Shapes (assigned): seq_len x global_batch per kind
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    try:
+        return SHAPES[name]
+    except KeyError:
+        raise ValueError(f"unknown shape {name!r}; have {sorted(SHAPES)}")
+
+
+def applicable_shapes(arch: ArchConfig) -> list[str]:
+    """The assignment's applicability rule: long_500k only for the
+    sub-quadratic (ssm, hybrid) families."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch.sub_quadratic:
+        out.append("long_500k")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 

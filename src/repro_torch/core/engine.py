@@ -91,15 +91,16 @@ DEFAULT_ENGINE = EngineCtx()
 def dot(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
     """x (..., K) @ w (K, N) with the output in ``out_dtype``. A float32
     output from bf16 operands accumulates in float32 without an f32 copy of
-    ``w`` on CUDA (``torch.mm`` with ``out_dtype``); the CPU upcasts, and so
-    does CUDA where autograd records the product (``torch.mm`` with
-    ``out_dtype`` has no derivative)."""
+    ``w`` on CUDA (``torch.mm`` with ``out_dtype``; on ``meta`` too, where
+    the dry run costs the card's route); the CPU upcasts, and so does CUDA
+    where autograd records the product (``torch.mm`` with ``out_dtype`` has
+    no derivative)."""
     lead, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k)
     if out_dtype == torch.float32 and x.dtype != torch.float32:
         recorded = torch.is_grad_enabled() and (x.requires_grad
                                                 or w.requires_grad)
-        if x.is_cuda and not recorded:
+        if x.device.type in ("cuda", "meta") and not recorded:
             y = torch.mm(x2, w, out_dtype=torch.float32)
         else:
             y = x2.to(torch.float32) @ w.to(torch.float32)

@@ -545,4 +545,7 @@ def test_front_door_lists_its_commands(capsys):
     assert front_door.main([]) == 2
     listing = capsys.readouterr().out
     assert "calibrate" in listing and "train" in listing
+    assert "dryrun" in listing and "breakdown" in listing
+    # dryrun without --arch or --all, and a command neither package has
     assert front_door.main(["dryrun"]) == 2
+    assert front_door.main(["dry-run"]) == 2

@@ -4,10 +4,9 @@
   anything of the JAX package (an AST scan of every import).
 * Entry points run on ``cuda`` unless the caller asks for the CPU: without a
   CUDA device they raise instead of running on the CPU.
-* What the port does not carry yet (the reference's XLA/TPU tooling:
-  ``dryrun``, ``breakdown``) is absent and raises on use; what it now
-  carries (the NVFP4/MXFP4 formats, the journal, every architecture and
-  family, the train mode) resolves.
+* What the port carries (the NVFP4/MXFP4 formats, the journal, every
+  architecture and family, the train mode, the dry run and its breakdown)
+  resolves; what it does not is a typed error.
 """
 import ast
 import importlib
@@ -159,15 +158,15 @@ def test_not_yet_ported_parts_raise():
         serve_requests(cfg, lm.init_params(cfg, 0, device="cpu"),
                        [torch.zeros(8, dtype=torch.long)], ModelCtx(),
                        ServeConfig(max_new_tokens=2), device="cpu", resume=True)
-    # every family and the train mode (the reference's train_loss and
-    # repro.launch.train) are ported; the XLA/TPU tooling is not
+    # every family, the train mode (the reference's train_loss and
+    # repro.launch.train) and the dry-run tooling (costed on meta) are ported
     assert "enc_blocks" in lm.abstract_params(get_arch("whisper-tiny"))
     assert callable(lm.train_loss)
     assert importlib.import_module("repro_torch.launch.train") is launch_train
     assert "train" in front_door.COMMANDS
     for tool in ("dryrun", "breakdown"):
-        assert tool not in front_door.COMMANDS
-        with pytest.raises(ModuleNotFoundError, match=f"repro_torch.launch.{tool}"):
-            importlib.import_module(f"repro_torch.launch.{tool}")
+        assert front_door.COMMANDS[tool][0] == f"repro_torch.launch.{tool}"
+        assert callable(importlib.import_module(
+            f"repro_torch.launch.{tool}").main)
     with pytest.raises(ValueError):
         get_format("fp3")

@@ -220,12 +220,13 @@ def test_launcher_serves_on_cpu():
 
 
 def test_launcher_refuses_flags_not_yet_ported():
-    """Every serve flag and family and the train mode are ported; the
-    reference's XLA/TPU tooling (``repro.launch.dryrun``) is not, and asking
-    for it exits nonzero, as does an arch neither package has."""
-    out = _launch("--arch", "whisper-tiny", "--reduced", "--device", "cpu",
+    """Every serve flag and family, the train mode and the dry run are
+    ported; the dry run's vec_q attention form is not, and asking for it
+    exits 2 naming the roadmap, as an arch neither package has exits 2."""
+    out = _launch("--arch", "whisper-tiny", "--attn", "vec_q",
                   module="repro_torch.launch.dryrun")
-    assert out.returncode != 0 and "repro_torch.launch.dryrun" in out.stderr
+    assert out.returncode == 2 and "vec_q" in out.stderr
+    assert "ROADMAP.md" in out.stderr
     out = _launch("--arch", "whisper-base", "--reduced", "--device", "cpu")
     assert out.returncode == 2 and "unknown arch 'whisper-base'" in out.stderr
 
