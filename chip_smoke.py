@@ -31,7 +31,9 @@ Phases (any failure ends the run with a nonzero exit):
              and kernel 1 then kernel 5, timed at the LM head beside that
              pair, with the bytes bound and Algorithm 1's issue floor
              (cuobjdump); kernels 3 and 4 also timed at a solo serve's
-             tiling and on the paged phase's ragged table (trailing
+             tiling (there the models-level decode_attention_packed within
+             rtol 2^-7, atol 1e-3 of kernel 3) and on the paged phase's
+             ragged table (trailing
              scratch entries, partial pages), kernel 4 bitwise kernel 3 at
              block_kv = P at 1, 2, 3, 8 and 33 tiles, a slot of length 0
              bitwise its plain version, a NaN V scale in the scratch page
@@ -73,7 +75,7 @@ Phases (any failure ends the run with a nonzero exit):
              request's tokens must equal its solo serve at attn_kv_block=P,
              kernel 4 must launch exactly 12 x the decode steps and kernel 3
              never.
-8. robust  — the same requests and pool, the weights on the first 6 of
+8. robust  — the same requests and pool, the weights on the first 3 of
              24 layers: a serving artifact saved
              (packed on the card) and loaded back onto it, serving the
              in-memory prepare's tokens, and one flipped byte raising
@@ -97,11 +99,11 @@ Phases (any failure ends the run with a nonzero exit):
              12 / D 192, rep 2 / D 64), all timed; lockstep serves (paper-
              iv, impl packed, HiF4 KV, batch 8, prompt 480) at full width
              of qwen3-4b (all 36 layers) and
-             granite-moe-1b-a400m on 12 of 24 (32 new tokens)
+             granite-moe-1b-a400m on 6 of 24 (32 new tokens)
              and nemotron-4-340b on its first 2 of 96 layers
              (8 new tokens, the packing's peak memory), exact launches per
              kernel and shape, tokens that vary across the batch; granite
-             (first 3 of 24 layers) through the paged phase's pool on
+             (first 2 of 24 layers) through the paged phase's pool on
              prompts of 400-480 tokens (hits, COW, evictions, a
              preemption), paged equal to solo for requests 0-2 and every
              preempted one; granite's expert einsums'
@@ -114,9 +116,9 @@ Phases (any failure ends the run with a nonzero exit):
              each bitwise its plain version and timed (kernel 2 at mamba2's
              six linears, N 64 and 128 among them; kernel 5's tensor-core
              body and decode form at zamba2's dense linears, N 64 and 80
-             among them); lockstep serves at full width and depth, weights
-             drawn on the card at 5x: mamba2-1.3b (48 layers, paper-iv,
-             impl packed) and zamba2-2.7b (54 Mamba layers, 9 calls of the
+             among them); lockstep serves at full width, weights drawn on
+             the card at 5x: mamba2-1.3b (24 of 48 layers, paper-iv, impl
+             packed) and zamba2-2.7b (30 of 54 Mamba layers, 5 calls of the
              shared block, impl pallas, HiF4 KV narrowed to bf16 with one
              KVFallbackWarning), batch 8, 32 new tokens, exact launches per
              kernel and shape, tokens that vary, the first 4 steps against
@@ -134,7 +136,7 @@ Phases (any failure ends the run with a nonzero exit):
              lockstep serves at batch 8, 32 new tokens, of whisper-tiny at
              full width and depth (4 encoder and 4 decoder layers, 1 536
              frames, decoding from BOS) and llava-next-34b at full width on
-             its first 8 of 60 layers (480-token embeds), exact launches per
+             its first 4 of 60 layers (480-token embeds), exact launches per
              kernel and shape (kernel 3 per cache), tokens that vary, the
              first 4 steps against the plain versions; whisper at batch 2
              card (kernels) vs card (plain versions, bitwise prefill
@@ -163,11 +165,12 @@ Phases (any failure ends the run with a nonzero exit):
              tokens against the plain versions. Policy files and reports go
              to .calibrate/ in the checkout (git-ignored).
 13. train  — training, which launches no kernel (impl qdq, as in the
-             reference): (a) the flash attention autograd.Function against
-             autograd of a naive f32 softmax attention at the train shape
-             (B 8, S 128, H 16, D 64) and at S 512 with 256-chunks, causal
-             and not (f32 operands within atol 3e-5; bf16 within 2^-7 of
-             the largest gradient); (b) python -m repro_torch train at full
+             reference): (a) the flash attention autograd.Functions (scan_q
+             and vec_q) against autograd of a naive f32 softmax attention at
+             the train shape (B 8, S 128, H 16, D 64) and at S 512 with
+             256-chunks, causal and not (f32 operands within atol 3e-5; bf16
+             within 2^-7 of the largest gradient), and the vec_q backward's
+             peak memory, also at B 2, S 4 096; (b) python -m repro_torch train at full
              width and depth (qwen1.5-0.5b, hif4, remat, batch 8, seq 128,
              16 steps, weights drawn on the card from --seed), in-process:
              finite losses, the last 4 below the first 4, zero kernel
@@ -184,10 +187,11 @@ Phases (any failure ends the run with a nonzero exit):
 
 14. dryrun — the dry run (repro_torch.launch.dryrun, on meta on this
              machine's CPU) held against real runs of the same steps at full
-             width and depth on the card, weights drawn on the card from
-             --seed: qwen1.5-0.5b train_4k (batch 256 cut to 2, impl qdq,
-             remat, one step), prefill_32k (batch 32 cut to 1) and
-             decode_32k (batch 128 cut to 8, a 24 GiB bf16 cache),
+             width on the card, weights drawn on the card from --seed:
+             qwen1.5-0.5b train_4k (batch 256 cut to 2, 6 of 24 layers,
+             impl qdq, remat, one step), prefill_32k (batch 32 cut to 1, 4
+             of 24 layers) and decode_32k (batch 128 cut to 8, all 24
+             layers, a 24 GiB bf16 cache),
              zamba2-2.7b and mamba2-1.3b long_500k (batch 1, no cut): the
              residency exactly the bytes of the tensors the card run
              allocates, peak_bytes_est within 10% of
@@ -195,12 +199,30 @@ Phases (any failure ends the run with a nonzero exit):
              FlopCounterMode count of the card run, the step time printed
              beside max(t_compute, t_memory) (a reading, no bound); then the
              serving route at the assignment's shapes (paper-iv, impl packed,
-             HiF4 KV): a 32 768-token qwen1.5-0.5b prefill at batch 1 and one
+             HiF4 KV): a 32 768-token qwen1.5-0.5b prefill (6 of 24
+             layers) at batch 1 and one
              decode step from its cache, exact launches, prefill logits
              bitwise and greedy tokens equal to the plain versions' run,
              kernels 1 and 2 (M = 32 768) bitwise and kernel 3 (S = 32 770)
              within rtol 2^-7, atol 1e-3 and a relative norm of 1e-3 of
-             their plain versions on layer 0's operands, each timed.
+             their plain versions on layer 0's operands, each timed (kernel
+             3 beside SDPA on the dequantized K/V).
+15. scenario — the serve-cell harness (repro_torch.runtime.scenario.
+             run_scenarios) at full width, weights from --seed, repeats 3,
+             the gate pair qwen-packed-hif4 / its guarded twin: qwen1.5-0.5b
+             (batch 8, prompt 480, 8 tokens) packed HiF4, guarded, bf16 KV,
+             qdq, paged (16-token pages) and paged with the journal and a
+             crash; whisper-tiny (1 536 frames) and mamba2-1.3b (prompt
+             512). Every probed dispatch holds and agrees with the kernels
+             each cell's decode launched (kernel 3 in the HiF4 scan cells
+             only, kernel 4 at P = 16 in the paged ones only, kernel 2's
+             decode form in every packed cell, nothing in the qdq cell);
+             kernel 4 on a paged cell's pool and kernel 3 past the cache's
+             capacity (the timing loop decodes beyond it; writes clamp at
+             the last slot) within rtol 2^-7, atol 1e-3 of their plain
+             versions; recovery bitwise; no decode step below its bytes
+             over the card's memory rate. One JSON line per cell (decode
+             and prefill ms, the four byte counts, that bound, its share).
 
 The last lines are the kernel records as one JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. The script imports
@@ -1094,6 +1116,22 @@ def check_attention(dev, records):
     s_plain_ms = cuda_ms(lambda *a: fused_decode_attention_plain(
         *a, hkv, d, block_kv=64), solo, iters=10)
     s_bound_ms = attention_bound_ms(hkv, d, ragged, None, cap)
+    # the models-level packed decode (one dequantized KV chunk at a time, in
+    # plain PyTorch) against kernel 3 on the same cache and ragged lengths
+    from repro_torch.models.attention import decode_attention_packed
+
+    dap = decode_attention_packed(*solo[0], hkv, d)
+    k3 = fused_decode_attention(*solo[0], n_kv_heads=hkv, d_head=d)
+    torch.cuda.synchronize()
+    dap_err = (dap.float() - k3.float()).abs()
+    check(bool((dap_err <= 1e-3 + 2 ** -7 * k3.float().abs()).all()),
+          f"decode_attention_packed vs kernel 3: max |d| "
+          f"{float(dap_err.max())} beyond rtol=2^-7, atol=1e-3")
+    dap_ms = cuda_ms(lambda *a: decode_attention_packed(*a, hkv, d), solo,
+                     iters=10)
+    print(f"  decode_attention_packed B=8 Hkv=16 D=64 S=512, lengths "
+          f"{RAGGED_LENGTH}: max |d| {float(dap_err.max()):.3e} vs kernel 3 "
+          f"(rtol 2^-7, atol 1e-3); {dap_ms:.5f} ms")
     print(f"  fused_decode_attention solo shape B=8 Hkv=16 D=64 S=512 "
           f"block_kv=64, lengths {RAGGED_LENGTH}: max |d| {float(err.max()):.3e} "
           f"vs plain; {_times(s_t)} plain_ms={s_plain_ms:.5f} "
@@ -2131,11 +2169,11 @@ def paged_run(dev, cfg, sparams, ctx, reqs, solo=None) -> dict:
 # served on two of the requests (paged == solo, so their tokens are the
 # full run's)
 ROBUST = {"victim": 3, "fault_layers": 2, "slot_requests": 4, "slot_slots": 2,
-          "artifact_requests": (0, 3), "layers": 6}
+          "artifact_requests": (0, 3), "layers": 3}
 # the phase's paged runs (artifact, guard, crash + resume) run the first
 # ``layers`` of qwen1.5-0.5b's 24 at full width (24 until the train phase
-# came; cut for the script's time: the paged phase keeps full depth, and
-# the paged schedule depends on the prompt lengths alone)
+# came, 6 until the scenario phase came; cut for the script's time: the
+# paged schedule depends on the prompt lengths alone)
 
 
 def _first_layers(tree, n: int):
@@ -2429,10 +2467,10 @@ def phase_robust(dev, seed, records):
 FAMILY_BATCH, FAMILY_PROMPT = 8, 480
 # (arch, layers or None for all, new tokens) of the lockstep serves:
 # nemotron-4-340b at full width on its first 2 of 96 layers (its packed
-# linears alone are ~186 GB); granite on 12 of its 24 layers, for the
-# script's time (at full depth its serve took 24.6 s, 13.8 s more; NVIDIA
-# H100 80GB HBM3, 700 W)
-FAMILY_SERVES = (("qwen3-4b", None, 32), ("granite-moe-1b-a400m", 12, 32),
+# linears alone are ~186 GB); granite on 6 of its 24 layers, for the
+# script's time (at full depth its serve took 24.6 s, 13.8 s more than on
+# 12; NVIDIA H100 80GB HBM3, 700 W)
+FAMILY_SERVES = (("qwen3-4b", None, 32), ("granite-moe-1b-a400m", 6, 32),
                  ("nemotron-4-340b", 2, 8))
 # the (K, N) each arch gives kernel 2 that qwen1.5-0.5b's path does not; at
 # 8 rows nemotron's FFN down-projection (73728, 18432) runs kernel 1, then
@@ -2460,10 +2498,11 @@ FAMILY_ATTENTION = (("qwen3-4b", 8, 32, 128, 512),
 # 16 tokens into its partial tail page (a slot's last page, 448-511, is
 # never shared).
 FAMILY_TAILS = (224, 160, 176, 192, 208, 160, 176, 224, 192, 208, 176)
-# granite's paged run at full width on its first 3 of 24 layers (its first
+# granite's paged run at full width on its first 2 of 24 layers (its first
 # layers are the whole model's, so no prefix overflows there either; the
-# scheduling depends on the prompts' lengths alone)
-FAMILY_PAGED_LAYERS = 3
+# scheduling depends on the prompts' lengths alone; 3 until the scenario
+# phase came)
+FAMILY_PAGED_LAYERS = 2
 # requests held against their solo serves, with every preempted one:
 # request 2 shares request 1's partial tail page and copies it (COW)
 FAMILY_SOLO = (0, 1, 2)
@@ -3206,9 +3245,12 @@ def phase_families(dev, seed, records):
 # ---------------------------------------------------------------------------
 
 SSM_BATCH, SSM_PROMPT = 8, 512      # the prompt a multiple of the SSD chunk
-# (arch, impl, layers (None: all), new tokens): lockstep serves at full width
-SSM_SERVES = (("mamba2-1.3b", "packed", None, 32),
-              ("zamba2-2.7b", "pallas", None, 32))
+# (arch, impl, layers (None: all), new tokens): lockstep serves at full
+# width, mamba2 on 24 of its 48 layers and zamba2 on 30 of 54 (5 calls of
+# the shared block), for the script's time (full depth until the scenario
+# phase came, which serves mamba2-1.3b at full depth)
+SSM_SERVES = (("mamba2-1.3b", "packed", 24, 32),
+              ("zamba2-2.7b", "pallas", 30, 32))
 # (K, N) of mamba2's six packed linears (w_z / w_x, w_b / w_c, w_dt, w_out)
 SSM_PACKED_SHAPES = ((2048, 4096), (2048, 128), (2048, 64), (4096, 2048))
 # the e2e cut: mamba2 at full width on 2 layers, batch 2, prompt 64
@@ -3581,9 +3623,10 @@ def phase_ssm(dev, seed, records):
 # default 1 024 does not divide 1 536)
 ENC_FRAMES, ENC_K_CHUNK = 1536, 512
 # (arch, layers or None for all, new tokens) of the lockstep serves:
-# llava-next-34b at full width on its first 8 of 60 layers (its 60 layers'
-# raw bf16, ~66.9 GB, and their packed copy do not fit the card together)
-ENCDEC_SERVES = (("whisper-tiny", None, 32), ("llava-next-34b", 8, 32))
+# llava-next-34b at full width on its first 4 of 60 layers (its 60 layers'
+# raw bf16, ~66.9 GB, and their packed copy do not fit the card together;
+# 8 until the scenario phase came, cut for the script's time)
+ENCDEC_SERVES = (("whisper-tiny", None, 32), ("llava-next-34b", 4, 32))
 # the (K, N) each arch gives kernel 2, and its prefill rows
 ENCDEC_SHAPES = (("whisper-tiny", FAMILY_BATCH * ENC_FRAMES,
                   ((384, 384), (384, 1536), (1536, 384))),
@@ -3736,7 +3779,7 @@ def phase_encdec(dev, seed, records):
     """The audio encoder-decoder (whisper-tiny) and the vlm (llava-next-34b):
     kernels 1-3 at their new shapes against the plain versions; whisper at
     full width and depth on 1 536 frames and llava at full width on its
-    first 8 of 60 layers on 480-token embeds, lockstep, each against the
+    first 4 of 60 layers on 480-token embeds, lockstep, each against the
     plain versions for its first steps; whisper's e2e cut card vs CPU."""
     import torch
 
@@ -4038,13 +4081,19 @@ def _naive_attention(q, k, v, causal):
 
 
 def train_flash(dev):
-    """(a) The flash autograd.Function against autograd of the naive
-    attention on the card: f32 operands within the reference test's atol
-    3e-5; bf16 operands (p and ds round to bf16 in the flash backward, as
-    in the reference) within 2^-7 of the largest gradient."""
+    """(a) The flash autograd.Functions (scan_q's ``flash_mha`` and vec_q's
+    ``flash_mha_vec``) against autograd of the naive attention on the card:
+    the vec form's output, and both backwards; f32 operands within the
+    reference test's atol 3e-5; bf16 operands (p and ds round to bf16 in the
+    flash backwards, as in the reference) within 2^-7 of the largest value.
+    The vec_q backward's peak memory above its operands, at these shapes and
+    at a train_4k cut (B 2, S 4 096, the ModelCtx's chunks 512 / 1 024)
+    beside scan_q's."""
     import torch
-    from repro_torch.models.attention import AttnChunking, flash_mha
+    from repro_torch.models.attention import (AttnChunking, flash_mha,
+                                              flash_mha_vec)
 
+    forms = {"flash": flash_mha, "vec_q flash": flash_mha_vec}
     for b, s, h, d, c in TRAIN_FLASH:
         for causal in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
@@ -4053,22 +4102,63 @@ def train_flash(dev):
                        .to(dtype).requires_grad_(True) for _ in range(3)]
 
                 def grads(fn):
-                    loss = torch.sum(torch.sin(fn(*qkv).float()))
-                    return torch.autograd.grad(loss, qkv)
+                    out = fn(*qkv)
+                    loss = torch.sum(torch.sin(out.float()))
+                    return (out.detach(),) + torch.autograd.grad(loss, qkv)
 
-                got = grads(lambda q, k, v: flash_mha(q, k, v, causal, 0,
-                                                      AttnChunking(c, c)))
                 want = grads(lambda q, k, v: _naive_attention(q, k, v, causal))
-                err = max(float((x.float() - y.float()).abs().max())
-                          for x, y in zip(got, want))
-                top = max(float(y.float().abs().max()) for y in want)
+                top = max(float(y.float().abs().max()) for y in want[1:])
                 tol = 3e-5 if dtype == torch.float32 else 2 ** -7 * top
                 name = str(dtype).replace("torch.", "")
-                print(f"  flash backward B={b} S={s} H={h} D={d} chunk {c} "
-                      f"causal={causal} {name}: dq/dk/dv max |d| {err:.3g} "
-                      f"(largest gradient {top:.3f}, limit {tol:.3g})")
-                check(err <= tol, f"the flash backward differs from the "
-                      f"naive attention's by {err} at S={s} {name}")
+                for form, fn in forms.items():
+                    got = grads(lambda q, k, v: fn(q, k, v, causal, 0,
+                                                   AttnChunking(c, c)))
+                    err = max(float((x.float() - y.float()).abs().max())
+                              for x, y in zip(got[1:], want[1:]))
+                    print(f"  {form} backward B={b} S={s} H={h} D={d} chunk "
+                          f"{c} causal={causal} {name}: dq/dk/dv max |d| "
+                          f"{err:.3g} (largest gradient {top:.3f}, limit "
+                          f"{tol:.3g})")
+                    check(err <= tol, f"the {form} backward differs from the "
+                          f"naive attention's by {err} at S={s} {name}")
+                    if form == "vec_q flash":
+                        o_err = float((got[0].float() - want[0].float())
+                                      .abs().max())
+                        o_tol = (3e-5 if dtype == torch.float32 else
+                                 2 ** -7 * float(want[0].float().abs().max()))
+                        print(f"  vec_q flash forward: max |d| {o_err:.3g} "
+                              f"(limit {o_tol:.3g})")
+                        check(o_err <= o_tol, f"the vec_q flash forward "
+                              f"differs from the naive attention's by {o_err}")
+    # peak memory of each backward (forward included) above its operands
+    for b, s, h, d, cq, ck in ((8, 128, 16, 64, 128, 128),
+                               (2, 4096, 16, 64, 512, 1024)):
+        gen = torch.Generator(device=dev).manual_seed(s)
+        qkv = [torch.randn((b, s, h, d), generator=gen, device=dev)
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3)]
+        peaks, got = {}, {}
+        for form, fn in forms.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*qkv, True, 0, AttnChunking(cq, ck))
+            got[form] = torch.autograd.grad(torch.sum(torch.sin(out.float())),
+                                            qkv)
+            del out
+            torch.cuda.synchronize()
+            peaks[form] = torch.cuda.max_memory_allocated() - base
+        err = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(got["vec_q flash"], got["flash"]))
+        top = max(float(y.float().abs().max()) for y in got["flash"])
+        print(f"  peak memory above the operands, causal bf16 B={b} S={s} "
+              f"H={h} D={d} chunks {cq}/{ck}: vec_q backward "
+              f"{peaks['vec_q flash'] / 2**20:.1f} MiB, scan_q "
+              f"{peaks['flash'] / 2**20:.1f} MiB; vec_q vs scan_q gradients "
+              f"max |d| {err:.3g} (limit {2 ** -7 * top:.3g}); {card_line()}")
+        check(err <= 2 ** -7 * top, f"vec_q and scan_q gradients differ by "
+              f"{err} at S={s}")
+        del got, qkv
+        torch.cuda.empty_cache()
 
 
 class _Tee:
@@ -4360,11 +4450,14 @@ def phase_train(dev, seed):
 
 # (arch, shape, batch cut): the dry run at the cut batch against real runs of
 # the same steps at full width and depth; None keeps the shape's batch
-DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", 2),
-                ("qwen1.5-0.5b", "prefill_32k", 1),
-                ("qwen1.5-0.5b", "decode_32k", 8),
-                ("zamba2-2.7b", "long_500k", None),
-                ("mamba2-1.3b", "long_500k", None))
+# (arch, shape, batch cut or None, layers or None for all): train_4k on 6
+# and prefill_32k on 4 of qwen1.5-0.5b's 24 layers, for the script's time
+# (at full depth they took 16.9 and 83.4 s; NVIDIA H100 80GB HBM3, 700 W)
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", 2, 6),
+                ("qwen1.5-0.5b", "prefill_32k", 1, 4),
+                ("qwen1.5-0.5b", "decode_32k", 8, None),
+                ("zamba2-2.7b", "long_500k", None, None),
+                ("mamba2-1.3b", "long_500k", None, None))
 # the dry run's peak against the card's max_memory_allocated, relative
 DRYRUN_PEAK_REL = 0.10
 # timed runs of a cell's step after the counted one (the least is printed):
@@ -4372,8 +4465,11 @@ DRYRUN_PEAK_REL = 0.10
 DRYRUN_TIMED = {"train": 1, "prefill": 1, "decode": 3}
 # the serving route at the assignment's shapes: a 32 768-token prefill at
 # batch 1 (kernels 1 and 2 at M = 32 768), then one decode step from that
-# HiF4 cache (kernel 2's decode form, kernel 3 over 32 768 tokens)
-DRYRUN_SERVE = {"arch": "qwen1.5-0.5b", "prompt": 32768, "new": 2}
+# HiF4 cache (kernel 2's decode form, kernel 3 over 32 768 tokens), on 6
+# of the 24 layers for the script's time (all 24 until the scenario phase
+# came; the kernels are held on layer 0's operands)
+DRYRUN_SERVE = {"arch": "qwen1.5-0.5b", "prompt": 32768, "new": 2,
+                "layers": 6}
 # kernel 3 over 32 769 near-uniformly weighted tokens gives outputs of about
 # |v| / sqrt(S), not far above the elementwise atol of 1e-3: it is also held
 # by ||y - ref|| / ||ref||, far below the ~8% a tile dropped or counted
@@ -4420,11 +4516,11 @@ def _real_inputs(specs, shape, vocab, gen, dev):
     return out
 
 
-def dryrun_cell(dev, seed, arch, shape_name, batch) -> dict:
-    """One cell: the dry run (on meta, here) at the cut batch, then the same
-    step on the card: residency exact, the peak within DRYRUN_PEAK_REL, the
-    matmul FLOPs equal to a FlopCounterMode count of the card run, the step
-    time beside max(t_compute, t_memory)."""
+def dryrun_cell(dev, seed, arch, shape_name, batch, layers) -> dict:
+    """One cell: the dry run (on meta, here) at the cut batch and depth,
+    then the same step on the card: residency exact, the peak within
+    DRYRUN_PEAK_REL, the matmul FLOPs equal to a FlopCounterMode count of
+    the card run, the step time beside max(t_compute, t_memory)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_arch, get_shape
@@ -4433,9 +4529,9 @@ def dryrun_cell(dev, seed, arch, shape_name, batch) -> dict:
     from repro_torch.models import lm
     from repro_torch.optim.adamw import adamw_init
 
-    cfg = get_arch(arch)
+    cfg = dryrun.cell_config(arch, layers)
     t0 = time.perf_counter()
-    rec, _, _ = dryrun.lower_cell(arch, shape_name, batch=batch)
+    rec, _, _ = dryrun.lower_cell(arch, shape_name, batch=batch, layers=layers)
     dry_s = time.perf_counter() - t0
     shape = dataclasses.replace(get_shape(shape_name),
                                 global_batch=rec["global_batch"])
@@ -4483,6 +4579,8 @@ def dryrun_cell(dev, seed, arch, shape_name, batch) -> dict:
     bound_ms = max(roof["t_compute_s"], roof["t_memory_s"]) * 1e3
     cut = ("" if batch is None else
            f" (cut from {get_shape(shape_name).global_batch})")
+    if layers is not None:
+        cut += f", {layers} of {get_arch(arch).n_layers} layers"
     print(f"  {arch} {shape_name} batch {shape.global_batch}{cut}: dry run "
           f"{dry_s:.1f} s on meta; residency {held} B exact; peak est "
           f"{est / 2**30:.3f} GiB vs card {peak / 2**30:.3f} GiB (ratio "
@@ -4558,7 +4656,7 @@ def dryrun_serve(dev, seed, records) -> None:
     from repro_torch.runtime.serve_loop import prepare_params_for_serving
 
     arch, prompt, new = (DRYRUN_SERVE[k] for k in ("arch", "prompt", "new"))
-    cfg = get_arch(arch)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=DRYRUN_SERVE["layers"])
     ctx = serving_setup(cfg)
     raw = lm.init_params(cfg, seed, device=dev, draw_on_device=True)
     sparams = prepare_params_for_serving(raw, cfg, ctx.plan, device=dev)
@@ -4642,7 +4740,16 @@ def dryrun_serve(dev, seed, records) -> None:
                 [(q, kc, vc, length)], iters=2, warmup=1)
             bound_ms = attention_bound_ms(kw["n_kv_heads"], kw["d_head"], length,
                                           None, cap, heads=q.shape[1])
-            bound_by, library_ms = "bytes", None
+            # the yardstick of the other kernel 3 rows: SDPA on the
+            # dequantized bf16 K/V (every slot, not the same function)
+            hkv, dh = kw["n_kv_heads"], kw["d_head"]
+            dense = [(q[:, :, None],
+                      kvcache.dequantize_kv(kc, hkv, dh).transpose(1, 2),
+                      kvcache.dequantize_kv(vc, hkv, dh).transpose(1, 2))]
+            library_ms = cuda_ms(torch.nn.functional.scaled_dot_product_attention,
+                                 dense, iters=50)
+            del dense
+            bound_by = "bytes"
             label = (f"B={q.shape[0]} Hkv={kw['n_kv_heads']} H={q.shape[1]} "
                      f"D={kw['d_head']} S={cap} (length {int(length[0])}), "
                      f"layer 0")
@@ -4669,14 +4776,272 @@ def dryrun_serve(dev, seed, records) -> None:
 def phase_dryrun(dev, seed, records):
     import torch
 
-    for arch, shape, batch in DRYRUN_CELLS:
+    for arch, shape, batch, layers in DRYRUN_CELLS:
         t0 = time.perf_counter()
-        dryrun_cell(dev, seed, arch, shape, batch)
+        dryrun_cell(dev, seed, arch, shape, batch, layers)
         print(f"  ({time.perf_counter() - t0:.1f} s)")
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     dryrun_serve(dev, seed, records)
     print(f"  ({time.perf_counter() - t0:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the serve-cell harness at full width
+# ---------------------------------------------------------------------------
+
+# run_scenarios' rounds: best of 3 interleaved chunks, then 3 x 3 A/B
+# rounds of the gate pair; paged cells max(2, 3 // 3) = 2 end-to-end rounds
+SCENARIO = {"repeats": 3,
+            "gate_pairs": (("qwen-packed-hif4", "qwen-packed-hif4-guarded"),)}
+SCENARIO_HIF4 = ("kv:hif4", "kv:no-fallback", "attn:fused_decode_attention",
+                 "matmul:fused")
+SCENARIO_PAGED = ("kv:hif4", "kv:no-fallback",
+                  "attn:fused_paged_decode_attention", "matmul:fused")
+# qwen1.5-0.5b's decode step: 24 layers of kernel 3, 24 x 7 packed linears
+QWEN_DECODE = {"fused_decode_attention": 24, "fused_decode_matmul": 24 * 7}
+
+
+def scenario_cells():
+    """The eight cells: qwen1.5-0.5b packed HiF4 (and guarded, bf16 KV, qdq,
+    paged, paged with the journal and a crash), whisper-tiny and
+    mamba2-1.3b, at full width, batch 8, 8 new tokens."""
+    from repro_torch.runtime.scenario import Scenario
+
+    q = dict(arch="qwen1.5-0.5b", batch=8, prompt_len=480, new_tokens=8,
+             reduced=False)
+    return (
+        Scenario("qwen-packed-hif4", impl="packed", kv_format="hif4",
+                 expect=SCENARIO_HIF4, **q),
+        Scenario("qwen-packed-hif4-guarded", impl="packed", kv_format="hif4",
+                 guarded=True, expect=SCENARIO_HIF4, **q),
+        Scenario("qwen-packed-bf16", impl="packed", kv_format="bf16",
+                 expect=("kv:bf16", "kv:no-fallback", "attn:dense",
+                         "matmul:fused"), **q),
+        Scenario("qwen-qdq-bf16", impl="qdq", kv_format="bf16",
+                 expect=("kv:bf16", "kv:no-fallback", "attn:dense",
+                         "matmul:qdq"), **q),
+        Scenario("qwen-packed-hif4-paged", impl="packed", kv_format="hif4",
+                 paged=True, expect=SCENARIO_PAGED, **q),
+        Scenario("qwen-packed-hif4-recovery", impl="packed", kv_format="hif4",
+                 paged=True, journaled=True, recovery=True, decode_chunk=2,
+                 expect=SCENARIO_PAGED, **q),
+        Scenario("whisper-packed-hif4", arch="whisper-tiny", impl="packed",
+                 kv_format="hif4", batch=8, prompt_len=1536, new_tokens=8,
+                 reduced=False, expect=SCENARIO_HIF4),
+        Scenario("mamba2-packed-hif4", arch="mamba2-1.3b", impl="packed",
+                 kv_format="hif4", batch=8, prompt_len=512, new_tokens=8,
+                 reduced=False, expect=("kv:bf16", "kv:fallback", "attn:none",
+                                        "matmul:fused")),
+    )
+
+
+@contextlib.contextmanager
+def scenario_recorder(seed: int):
+    """Attribute the harness's kernel launches to its cells, and keep the
+    operands of one attention call per cell.
+
+    The harness's ``_build_cell`` is wrapped to draw each cell's weights
+    from ``seed`` and to map its serving params to the cell; each decode
+    chunk (the scan cells) and each ``serve_requests`` call (the paged
+    cells) then adds the counters' change across it to its cell, per call.
+    Kernel 3's calls keep a copy of the operands of the first call of each
+    cell's second chunk (the first whose positions pass the cache's
+    capacity); kernel 4's of each cell's 49th call (its third decode
+    step), and the page sizes it ran at."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import build
+    from repro_torch.runtime import scenario, serve_loop
+
+    rec = {"launches": {}, "chunks": {}, "k3": {}, "k4": {}, "pages": set(),
+           "k4_calls": {}}
+    owner, current = {}, [None]
+    saved = (scenario._build_cell, scenario.serve_requests,
+             serve_loop._decode_chunk, serve_loop._decode_chunk_guarded,
+             engine.fused_decode_attention, engine.fused_paged_decode_attention)
+    build_cell, serve_requests, chunk, chunk_guarded, k3, k4 = saved
+
+    def copy(x):
+        if isinstance(x, dict):
+            return {k: v.clone() for k, v in x.items()}
+        return x.clone() if hasattr(x, "clone") else x
+
+    def counted(name, fn, *a, **kw):
+        before = dict(build.LAUNCHES)
+        outer, current[0] = current[0], name
+        try:
+            return fn(*a, **kw)
+        finally:
+            current[0] = outer
+            delta = {k: build.LAUNCHES[k] - before[k] for k in before}
+            rec["launches"].setdefault(name, []).append(delta)
+
+    def rec_build(scn, device=None):
+        cfg, ctx, sp = build_cell(scn, device, seed=seed)
+        owner[id(sp)] = scn.name
+        return cfg, ctx, sp
+
+    def rec_serve(cfg, sp, *a, **kw):
+        return counted(owner[id(sp)], serve_requests, cfg, sp, *a, **kw)
+
+    def rec_chunk(fn):
+        def wrapped(params, *a, **kw):
+            name = owner.get(id(params))
+            if name is None:             # inside serve_requests: counted there
+                return fn(params, *a, **kw)
+            out = counted(name, fn, params, *a, **kw)
+            rec["chunks"][name] = rec["chunks"].get(name, 0) + 1
+            return out
+        return wrapped
+
+    def rec_k3(q, k, v, length, **kw):
+        name = current[0]
+        if rec["chunks"].get(name) == 1 and name not in rec["k3"]:
+            rec["k3"][name] = (copy(q), copy(k), copy(v), copy(length), kw)
+        return k3(q, k, v, length, **kw)
+
+    def rec_k4(q, kp, vp, pages, length, **kw):
+        name = current[0]
+        rec["pages"].add(kp["codes"].shape[-1])
+        n = rec["k4_calls"][name] = rec["k4_calls"].get(name, 0) + 1
+        if n == 49:
+            rec["k4"][name] = (copy(q), copy(kp), copy(vp), copy(pages),
+                               copy(length), kw)
+        return k4(q, kp, vp, pages, length, **kw)
+
+    scenario._build_cell, scenario.serve_requests = rec_build, rec_serve
+    serve_loop._decode_chunk = rec_chunk(chunk)
+    serve_loop._decode_chunk_guarded = rec_chunk(chunk_guarded)
+    engine.fused_decode_attention = rec_k3
+    engine.fused_paged_decode_attention = rec_k4
+    try:
+        yield rec
+    finally:
+        (scenario._build_cell, scenario.serve_requests,
+         serve_loop._decode_chunk, serve_loop._decode_chunk_guarded,
+         engine.fused_decode_attention,
+         engine.fused_paged_decode_attention) = saved
+
+
+def _attention_vs_plain(label, out, ref) -> float:
+    err = (out.float() - ref.float()).abs()
+    worst = float(err.max())
+    check(bool((err <= 1e-3 + 2 ** -7 * ref.float().abs()).all()),
+          f"{label}: max |d| {worst} beyond rtol=2^-7, atol=1e-3 of the plain "
+          f"version")
+    return worst
+
+
+def phase_scenario(dev, seed, records):
+    """The serve-cell harness (repro_torch.runtime.scenario.run_scenarios)
+    on the card at full width: every cell's probed dispatch holds and
+    agrees with the kernels its decode launched; kernel 4 at 16-token pages
+    and kernel 3 past the cache's capacity held against their plain
+    versions on the operands the cells gave them; recovery bitwise; no
+    cell's decode step below its bytes over the card's memory rate. One
+    JSON line per cell."""
+    import torch
+    from repro_torch.core import kvcache
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_attention import (
+        fused_decode_attention, fused_decode_attention_plain,
+        fused_paged_decode_attention, fused_paged_decode_attention_plain)
+    from repro_torch.runtime.scenario import run_scenarios
+
+    cells = scenario_cells()
+    t0 = time.perf_counter()
+    with scenario_recorder(seed) as rec:
+        build.reset_launches()
+        out = run_scenarios(cells, repeats=SCENARIO["repeats"],
+                            gate_pairs=SCENARIO["gate_pairs"], device=dev,
+                            log=lambda m: print(f"  {m}"))
+        totals = dict(build.LAUNCHES)
+    print(f"  run_scenarios: {len(out)} cells in {time.perf_counter() - t0:.1f} "
+          f"s; launches {totals}; kernel 4 page sizes {sorted(rec['pages'])}")
+    recs = {r["name"]: r for r in out}
+    for scn in cells:
+        r = recs[scn.name]
+        check(r["dispatch_ok"], f"{scn.name}: dispatch {r['dispatch']} fails "
+              f"{r['dispatch_failures']}")
+        calls = rec["launches"].get(scn.name, [])
+        got = {k: sum(c[k] for c in calls) for k in totals}
+        attn, matmul = r["dispatch"]["attn"], r["dispatch"]["matmul"]
+        print(f"  {scn.name}: attn {attn['route']} (fused {attn.get('fused')}), "
+              f"matmul {matmul['route']}; decode launches over {len(calls)} "
+              f"calls: { {k: v for k, v in got.items() if v} }")
+        check(len(calls) > 0, f"{scn.name}: no decode call was seen")
+        k3n, k4n = got["fused_decode_attention"], got["fused_paged_decode_attention"]
+        if attn["route"] == "fused_decode_attention":
+            check(attn["fused"] and k3n > 0 and k4n == 0,
+                  f"{scn.name}: probe says kernel 3; launched {got}")
+        elif attn["route"] == "fused_paged_decode_attention":
+            check(attn["fused"] and k4n > 0 and k3n == 0,
+                  f"{scn.name}: probe says kernel 4; launched {got}")
+        else:
+            check(k3n == k4n == 0, f"{scn.name}: probe says {attn['route']}; "
+                  f"launched {got}")
+        if matmul["route"] == "fused":
+            check(got["fused_decode_matmul"] > 0,
+                  f"{scn.name}: probe says fused; kernel 2's decode form never "
+                  f"launched: {got}")
+        else:
+            check(not any(got.values()), f"{scn.name}: probe says "
+                  f"{matmul['route']}; launched {got}")
+        if scn.arch == "qwen1.5-0.5b" and not scn.paged and scn.impl == "packed":
+            want = {k: n * scn.new_tokens for k, n in QWEN_DECODE.items()}
+            if scn.kv_format != "hif4":
+                want["fused_decode_attention"] = 0
+            check(all({k: c[k] for k in want} == want for c in calls),
+                  f"{scn.name}: a chunk's launches differ from {want}: "
+                  f"{[{k: c[k] for k in want} for c in calls]}")
+    check(rec["pages"] == {16}, f"kernel 4 ran at page sizes {rec['pages']}")
+    # kernel 4 on the paged cells' pools, kernel 3 past the capacity: held
+    # against their plain versions on the operands the cells gave them
+    for name, (q, kp, vp, pages, length, kw) in sorted(rec["k4"].items()):
+        y = fused_paged_decode_attention(q, kp, vp, pages, length, **kw)
+        ref = fused_paged_decode_attention_plain(q, kp, vp, pages, length,
+                                                 kw["n_kv_heads"], kw["d_head"])
+        err = _attention_vs_plain(f"{name}: kernel 4", y, ref)
+        print(f"  {name}: kernel 4 at P={kp['codes'].shape[-1]}, "
+              f"{pages.shape[1]} pages a slot, lengths {length.tolist()}: max "
+              f"|d| {err:.3e} vs plain (rtol 2^-7, atol 1e-3)")
+    check(set(rec["k4"]) == {c.name for c in cells if c.paged},
+          f"kernel 4 operands kept for {sorted(rec['k4'])}")
+    for name, (q, kc, vc, length, kw) in sorted(rec["k3"].items()):
+        cap = kvcache.seq_capacity(kc)
+        y = fused_decode_attention(q, kc, vc, length, **kw)
+        ref = fused_decode_attention_plain(q, kc, vc, length, kw["n_kv_heads"],
+                                           kw["d_head"], block_kv=kw.get("block_kv"))
+        err = _attention_vs_plain(f"{name}: kernel 3", y, ref)
+        print(f"  {name}: kernel 3 at capacity {cap} received lengths "
+              f"{sorted(set(length.tolist()))} (the write clamped at slot "
+              f"{cap - 1}): max |d| {err:.3e} vs plain")
+    for name in (c.name for c in cells if c.arch == "qwen1.5-0.5b"
+                 and c.kv_format == "hif4" and not c.paged):
+        _, kc, _, length, _ = rec["k3"][name]
+        check(int(length.min()) > kvcache.seq_capacity(kc),
+              f"{name}: kernel 3's kept call is not past the capacity")
+    torch.cuda.synchronize()
+    card = card_line()
+    for scn in cells:
+        r = recs[scn.name]
+        ro = r["roofline"]
+        bound_ms = ro["bytes_per_step"] / HBM_BYTES_PER_S * 1e3
+        check(r["decode_step_ms"] >= bound_ms, f"{scn.name}: decode step "
+              f"{r['decode_step_ms']} ms below its bytes bound {bound_ms} ms")
+        line = {"cell": scn.name, "timing": r["timing"],
+                "decode_step_ms": r["decode_step_ms"],
+                "prefill_ms": r["prefill_ms"], **ro,
+                "bytes_bound_ms": bound_ms,
+                "bound_share": bound_ms / r["decode_step_ms"],
+                "dispatch_ok": r["dispatch_ok"]}
+        if "gate_timing" in r:
+            line["gate_timing"] = r["gate_timing"]
+        if "recovery" in r:
+            line["recovery"] = r["recovery"]
+        print(f"  scenario {json.dumps(line)} {card}")
+    rcv = recs["qwen-packed-hif4-recovery"]["recovery"]
+    check(rcv["crashed"] and rcv["bitwise"], f"recovery cell: {rcv}")
 
 
 def main(argv=None) -> int:
@@ -4687,7 +5052,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (kernels,serve,pallas,"
                          "e2e,paged,robust,families,ssm,encdec,calibrate,"
-                         "train,dryrun); default all")
+                         "train,dryrun,scenario); default all")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
     # before cuBLAS first initializes: phase train runs the train loop under
@@ -4730,7 +5095,8 @@ def main(argv=None) -> int:
               ("encdec", lambda: phase_encdec(dev, args.seed, records)),
               ("calibrate", lambda: phase_calibrate(dev, args.seed)),
               ("train", lambda: phase_train(dev, args.seed)),
-              ("dryrun", lambda: phase_dryrun(dev, args.seed, records))]
+              ("dryrun", lambda: phase_dryrun(dev, args.seed, records)),
+              ("scenario", lambda: phase_scenario(dev, args.seed, records))]
     try:
         print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")

@@ -200,7 +200,7 @@ def probe_sites(cfg: ArchConfig, *, params: Optional[dict] = None,
     docstring). ``params`` defaults to the seeded random init the serve
     launcher draws (``lm.init_params(cfg, seed)``); ``batches`` to
     ``n_batches`` prefill batches of (batch, seq_len) drawn from ``seed + i``
-    (:func:`repro_torch.launch.serve.prefill_batch`): given, they are the
+    (:func:`repro_torch.runtime.scenario.prefill_batch`): given, they are the
     calibration set (dicts of tensors or numpy arrays, e.g. the reference's)
     and set n_batches, batch and seq_len. ``timings`` (a dict) receives the
     seconds of the forward (``probe_s``), of HiGPTQ (``higptq_s``) and of
@@ -209,7 +209,7 @@ def probe_sites(cfg: ArchConfig, *, params: Optional[dict] = None,
     if params is None:
         params = lm.init_params(cfg, seed, device=dev)
     if batches is None:
-        from repro_torch.launch.serve import prefill_batch
+        from repro_torch.runtime.scenario import prefill_batch
 
         batches = [prefill_batch(cfg, batch, seq_len, seed + i, dev)
                    for i in range(n_batches)]

@@ -318,7 +318,9 @@ def attention_dispatch_info(quant: QuantConfig, k_cache: dict, *,
                             paged: bool = False) -> dict:
     """What :func:`attention_decode` will run for this cache under ``quant``
     on ``device``: ``fused`` (the CUDA kernel), ``execution``, ``block_kv``,
-    ``kernel_eligible`` (device-neutral) and ``route``. ``paged=True``
+    ``kernel_eligible`` (device-neutral) and ``route``, the function that
+    runs on that device (the reference's ``_xla`` twins are the ``_plain``
+    versions here). ``paged=True``
     answers for page-pool leaves (``pages`` passed to
     :func:`attention_decode`)."""
     block = (kvcache.pool_page_tokens(k_cache) if paged
@@ -336,8 +338,9 @@ def attention_dispatch_info(quant: QuantConfig, k_cache: dict, *,
                 "route": route + "_plain",
                 "execution": f"plain recurrence (chunked dequantize; {why})"}
     if torch.device(device).type != "cuda":
+        # the wrapper runs its plain version on a CPU tensor
         return {"fused": False, "block_kv": block, "kernel_eligible": True,
-                "route": route, "execution": "plain recurrence (CPU)"}
+                "route": route + "_plain", "execution": "plain recurrence (CPU)"}
     execution = ("CUDA fused kernel" if d_head % 2 == 0
                  else "CUDA fused kernel (refuses an odd d_head: raises)")
     return {"fused": True, "block_kv": block, "kernel_eligible": True,

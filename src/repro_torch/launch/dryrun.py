@@ -12,6 +12,7 @@ Nothing is allocated on any device, and no card is needed.
   python -m repro_torch dryrun --arch qwen1.5-0.5b --shape decode_32k
   python -m repro_torch dryrun --all
   python -m repro_torch dryrun --all --mesh both     # residency on 16x16, 2x16x16
+  python -m repro_torch dryrun --arch qwen1.5-0.5b --shape train_4k --attn vec_q
 
 ``--mesh card`` (the default) costs the step on the card's constants
 (``launch/mesh.py``) and states whether its peak fits the card
@@ -19,8 +20,10 @@ Nothing is allocated on any device, and no card is needed.
 ``--mesh single|multi|both`` gives the reference's meshes, residency only
 (params, opt_state and kv_cache per device under ``ShardCtx``): a per-device
 roofline needs a partitioner and a multi-card machine, which the port does
-not have. One JSON record per cell goes under ``--out`` (default
-``experiments/dryrun_torch/``).
+not have. ``--attn`` picks the attention form a cell costs (``auto``:
+``scan_q`` on the card, the reference's rule on its meshes); the record's
+``attn_impl`` names it. One JSON record per cell goes under ``--out``
+(default ``experiments/dryrun_torch/``).
 """
 from __future__ import annotations
 
@@ -86,9 +89,10 @@ def resident_bytes_per_device(spec_tree, shard: ShardCtx) -> int:
 
 
 def make_ctx(mesh: Optional[dict], quant: str, *, fsdp: bool,
-             seq_shard: bool = True) -> tuple:
-    """(ModelCtx, ShardCtx) of a cell: the model's quantization, and the
-    sharding rules its residency is counted under."""
+             seq_shard: bool = True, attn_impl: str = "scan_q") -> tuple:
+    """(ModelCtx, ShardCtx) of a cell: the model's quantization and
+    attention form, and the sharding rules its residency is counted
+    under."""
     shard = ShardCtx(mesh=mesh)
     overrides = {}
     if not fsdp:
@@ -97,7 +101,21 @@ def make_ctx(mesh: Optional[dict], quant: str, *, fsdp: bool,
         overrides["act_seq"] = ()
     if overrides:
         shard = shard.with_rules(**overrides)
-    return ModelCtx(quant=QuantConfig(fmt=quant)), shard
+    return ModelCtx(quant=QuantConfig(fmt=quant), attn_impl=attn_impl), shard
+
+
+def resolve_attn_impl(cfg: ArchConfig, mesh_axes: dict, attn_mode: str) -> str:
+    """The attention form a cell runs (the reference's rule): ``vec_q`` when
+    asked, or under ``auto`` where the head count does not divide the
+    mesh's tensor-parallel axis; else ``scan_q``. On the card that axis is
+    1, so ``auto`` is ``scan_q`` there."""
+    if attn_mode == "vec_q":
+        return "vec_q"
+    tp = mesh_axes.get("model", 1)
+    if (attn_mode == "auto" and cfg.attn is not None
+            and cfg.attn.n_heads % tp != 0):
+        return "vec_q"
+    return "scan_q"
 
 
 # ---------------------------------------------------------------------------
@@ -147,12 +165,12 @@ def param_specs(cfg: ArchConfig, kind: str, quant: str, packed: bool) -> tuple:
 
 
 def make_cell_step(cfg: ArchConfig, shape: ShapeConfig, *, quant: str = "hif4",
-                   microbatches: int = 1):
+                   microbatches: int = 1, attn_impl: str = "scan_q"):
     """The step a cell runs: the train step (AdamW, ``microbatches``), the
     prefill step or the serve step, under the dry run's context
-    (inference: weights quantized once offline, no remat). A card run of
-    the cell calls the same step on real tensors."""
-    ctx, _ = make_ctx(None, quant, fsdp=True)
+    (inference: weights quantized once offline, no remat) and attention
+    form. A card run of the cell calls the same step on real tensors."""
+    ctx, _ = make_ctx(None, quant, fsdp=True, attn_impl=attn_impl)
     if shape.kind == "train":
         return make_train_step(cfg, ctx, AdamWConfig(),
                                num_microbatches=microbatches)
@@ -178,14 +196,15 @@ def cell_specs(cfg: ArchConfig, shape: ShapeConfig, *, quant: str = "hif4",
 
 
 def cell_step(cfg: ArchConfig, shape: ShapeConfig, *, quant: str = "hif4",
-              packed: bool = False, microbatches: int = 1) -> tuple:
+              packed: bool = False, microbatches: int = 1,
+              attn_impl: str = "scan_q") -> tuple:
     """(step, args on ``meta`` tensors) of one cell."""
     specs = cell_specs(cfg, shape, quant=quant, packed=packed)
     args = (lm.realize_packed(specs[0], _meta),) + tuple(
         _meta(s) if isinstance(s, PSpec) else map_specs(_meta, s)
         for s in specs[1:])
-    return make_cell_step(cfg, shape, quant=quant,
-                          microbatches=microbatches), args
+    return make_cell_step(cfg, shape, quant=quant, microbatches=microbatches,
+                          attn_impl=attn_impl), args
 
 
 def dispatch_cost(cfg: ArchConfig, shape: ShapeConfig, *, regions=False,
@@ -209,6 +228,18 @@ def loop_aware_cost(cfg: ArchConfig, shape: ShapeConfig, *, regions=False,
     return cost_analysis.extrapolate(samples, target, degree)
 
 
+def cell_config(arch: str, layers: Optional[int] = None) -> ArchConfig:
+    """The arch's config, its depth cut to ``layers`` periods (a card run's
+    cut; the audio family's two depths are not cut)."""
+    cfg = get_arch(arch)
+    if layers is None:
+        return cfg
+    if len(depth_knobs(cfg)) != 1:
+        raise ValueError(f"{arch}: a depth cut takes one depth knob, the "
+                         f"{cfg.family} family has {len(depth_knobs(cfg))}")
+    return at_depth(cfg, (layers,))
+
+
 def cell_shape(shape_name: str, batch: Optional[int]) -> ShapeConfig:
     shape = get_shape(shape_name)
     return (dataclasses.replace(shape, global_batch=batch) if batch
@@ -218,12 +249,15 @@ def cell_shape(shape_name: str, batch: Optional[int]) -> ShapeConfig:
 def residency_record(arch: str, shape_name: str, *, mesh: str = "card",
                      quant: str = "hif4", fsdp: bool = True,
                      seq_shard: Optional[bool] = None, microbatches: int = 0,
-                     packed: bool = False,
-                     batch: Optional[int] = None) -> dict:
+                     packed: bool = False, batch: Optional[int] = None,
+                     attn_mode: str = "auto",
+                     layers: Optional[int] = None) -> dict:
     """One cell's record without its cost: residency per device under the
-    mesh's ``ShardCtx``, parameter counts and ``model_flops``. ``batch``
-    cuts the shape's global batch (a card run's cut)."""
-    cfg = get_arch(arch)
+    mesh's ``ShardCtx``, parameter counts, ``model_flops`` and the attention
+    form (:func:`resolve_attn_impl`). ``batch`` cuts the shape's global
+    batch and ``layers`` the depth (:func:`cell_config`), a card run's
+    cuts."""
+    cfg = cell_config(arch, layers)
     shape = cell_shape(shape_name, batch)
     mesh_axes = hw.MESHES[mesh]
     if seq_shard is None:  # auto: SP only where activation memory demands it
@@ -248,7 +282,8 @@ def residency_record(arch: str, shape_name: str, *, mesh: str = "card",
         "arch": arch, "shape": shape_name, "mesh": mesh, "kind": shape.kind,
         "global_batch": shape.global_batch, "seq_len": shape.seq_len,
         "quant": quant, "fsdp": fsdp, "seq_shard": seq_shard,
-        "attn_impl": "scan_q", "packed_weights": packed, "microbatches": mb,
+        "attn_impl": resolve_attn_impl(cfg, mesh_axes, attn_mode),
+        "packed_weights": packed, "microbatches": mb,
         "n_devices": hw.mesh_devices(mesh_axes),
         "n_params": cfg.n_params(), "n_active_params": cfg.n_active_params(),
         "resident_bytes_per_device": resident, "model_flops": model_flops,
@@ -273,26 +308,26 @@ def lower_cell(arch: str, shape_name: str, *, mesh: str = "card",
                quant: str = "hif4", fsdp: bool = True,
                seq_shard: Optional[bool] = None, microbatches: int = 0,
                attn_mode: str = "auto", packed: bool = False,
-               batch: Optional[int] = None, regions: bool = False) -> tuple:
+               batch: Optional[int] = None, regions: bool = False,
+               layers: Optional[int] = None) -> tuple:
     """One cell -> (record, Cost or None, region multiplicities): the
-    :func:`residency_record`, and on the card the step costed on ``meta``."""
-    if attn_mode == "vec_q":
-        raise ValueError("the vec_q attention form is not ported (ROADMAP.md "
-                         "§1); --attn auto resolves to scan_q on the card")
+    :func:`residency_record`, and on the card the step costed on ``meta``
+    in the record's attention form."""
     record = residency_record(arch, shape_name, mesh=mesh, quant=quant,
                               fsdp=fsdp, seq_shard=seq_shard,
                               microbatches=microbatches, packed=packed,
-                              batch=batch)
+                              batch=batch, attn_mode=attn_mode, layers=layers)
     if mesh != "card":
         record["roofline_note"] = NO_ROOFLINE
         return record, None, {}
-    cfg, shape = get_arch(arch), cell_shape(shape_name, batch)
+    cfg, shape = cell_config(arch, layers), cell_shape(shape_name, batch)
     resident, model_flops = (record["resident_bytes_per_device"],
                              record["model_flops"])
     t0 = time.perf_counter()
     cost, mult = loop_aware_cost(cfg, shape, regions=regions, quant=quant,
                                  packed=record["packed_weights"],
-                                 microbatches=record["microbatches"])
+                                 microbatches=record["microbatches"],
+                                 attn_impl=record["attn_impl"])
     inputs = (decode_specs(cfg, shape)["token"] if shape.kind == "decode"
               else batch_specs(cfg, shape))
     argument_bytes = (sum(resident.values())
@@ -314,6 +349,8 @@ def record_tag(rec: dict, args) -> str:
         tag += "_nofsdp"
     if args.no_seq_shard:
         tag += "_nosp"
+    if args.attn != "auto":
+        tag += f"_{args.attn}"
     if args.packed:
         tag += "_packed"
     return tag.replace("/", "-")
@@ -377,11 +414,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.attn == "vec_q":
-        print("--attn vec_q: the vec_q attention form is not ported yet "
-              "(ROADMAP.md §1); auto resolves to scan_q on the card",
-              file=sys.stderr)
-        return 2
     if args.all:
         cells = [(a, s) for a in all_archs()
                  for s in applicable_shapes(get_arch(a))]

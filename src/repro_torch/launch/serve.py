@@ -73,6 +73,7 @@ from repro_torch.models.common import ModelCtx
 from repro_torch.runtime import faults
 from repro_torch.runtime.guard import GuardConfig
 from repro_torch.runtime.journal import journal_residency
+from repro_torch.runtime.scenario import prefill_batch
 from repro_torch.runtime.serve_loop import (
     ServeConfig,
     packed_weight_bytes,
@@ -189,20 +190,6 @@ def _print_attention_dispatch(cfg, ctx, capacity, device, page_tokens=0):
     print(f"packed attention: {'fused' if info['fused'] else 'plain'} "
           f"[{info['execution']}] {info['route']}, kv tile {info['block_kv']} "
           f"of {where}")
-
-
-def prefill_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
-    """The prefill inputs the family's serve takes: ``frames`` (audio) or
-    ``embeds`` (vlm), f32 normals (batch, prompt_len, d_model) drawn on
-    ``device``; else token ids (batch, prompt_len), drawn on the host."""
-    if cfg.family == "audio" or cfg.embeds_input:
-        gen = torch.Generator(device=device).manual_seed(seed)
-        x = torch.randn(batch, prompt_len, cfg.d_model, generator=gen,
-                        device=device)
-        return {"frames" if cfg.family == "audio" else "embeds": x}
-    gen = torch.Generator().manual_seed(seed)
-    return {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
-                                    generator=gen)}
 
 
 def parse_args(argv=None):

@@ -34,6 +34,9 @@ class ModelCtx:
     remat: bool = True
     attn_q_chunk: int = 512
     attn_k_chunk: int = 1024
+    # "scan_q": the q-chunk loop with its causal early exit (default);
+    # "vec_q": every q chunk advances together (attention.flash_mha_vec)
+    attn_impl: str = "scan_q"
     # Decode KV-tile override for the packed attention paths (None = the
     # kernel's own select_kv_block). Bitwise parity between a paged run
     # (tiles = pages) and a contiguous reference depends on the PARTITION

@@ -20,7 +20,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import engine as qengine
 from repro_torch.core import kvcache
-from repro_torch.models.attention import AttnChunking, decode_attention, flash_attention
+from repro_torch.models.attention import (AttnChunking, decode_attention,
+                                          flash_attention, flash_mha_vec)
 from repro_torch.models.common import (ModelCtx, apply_rope, dense, layer_norm,
                                        rms_norm)
 from repro_torch.models.params import PSpec
@@ -127,7 +128,10 @@ def attn_full(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx, *,
         k = apply_rope(k, positions, cfg.attn.rope_theta)
     chunking = AttnChunking(q_chunk=min(ctx.attn_q_chunk, S),
                             k_chunk=min(ctx.attn_k_chunk, S))
-    o = flash_attention(q, k, v, causal=causal, chunking=chunking)
+    if ctx.attn_impl == "vec_q":
+        o = flash_mha_vec(q, k, v, causal, 0, chunking)
+    else:
+        o = flash_attention(q, k, v, causal=causal, chunking=chunking)
     y = out_proj(p, o, cfg, ctx, site)
     return y, ({"k": k, "v": v} if return_cache else None)
 

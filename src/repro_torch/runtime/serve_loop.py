@@ -333,8 +333,8 @@ def _decode_chunk_guarded(params, token, cache, done, bad, n_tokens: int,
     flags); nothing waits for the device."""
     toks, token, cache, done, bad = _decode_steps(
         params, token, cache, done, n_tokens, cfg, sctx, eos_id, bad)
-    kv = cache["kv"]
-    if kvcache.is_packed_kv(kv["k"]):
+    kv = cache.get("kv")
+    if kv is not None and kvcache.is_packed_kv(kv["k"]):
         meta_nan = guard_mod.slot_meta_nan_counts(kv)
     else:
         meta_nan = torch.zeros(token.shape, dtype=torch.int32, device=token.device)

@@ -466,4 +466,56 @@ def test_cli_module_entry_and_refusals(tmp_path):
     assert [r["mesh"] for r in recs] == ["16x16", "2x16x16"]
     assert all(r["roofline"] is None and "partitioner" in r["roofline_note"]
                for r in recs)
-    assert dryrun.main(["--arch", "qwen1.5-0.5b", "--attn", "vec_q"]) == 2
+    # --attn vec_q costs the vec_q form: every (q, k) tile of a causal
+    # train_4k cell, so at least scan_q's FLOPs, which skips the tiles past
+    # the diagonal
+    flops = {}
+    for attn in ("vec_q", "scan_q"):
+        out = tmp_path / attn
+        assert dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "train_4k",
+                            "--attn", attn, "--out", str(out)]) == 0
+        (path,) = out.iterdir()
+        rec = json.loads(path.read_text())
+        assert rec["attn_impl"] == attn and path.name.endswith(f"_{attn}.json")
+        flops[attn] = rec["roofline"]["flops_per_device"]
+    assert flops["vec_q"] >= flops["scan_q"], flops
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_auto_attention_form_follows_the_reference_rule(mesh):
+    """``--attn auto``: vec_q where the heads do not divide the mesh's
+    tensor-parallel axis (the reference's lower_cell rule: qwen1.5-4b's 20,
+    llava's 56, whisper's 6 heads on 16-way TP), scan_q on the card."""
+    tp = hw.MESHES[mesh].get("model", 1)
+    for arch in all_archs():
+        ja = jget_arch(arch).attn
+        want = ("vec_q" if ja is not None and ja.n_heads % tp != 0
+                else "scan_q")
+        rec = dryrun.residency_record(arch, applicable_shapes(get_arch(arch))[0],
+                                      mesh=mesh)
+        assert rec["attn_impl"] == want, (arch, mesh)
+        for mode in ("scan_q", "vec_q"):
+            assert dryrun.residency_record(
+                arch, applicable_shapes(get_arch(arch))[0], mesh=mesh,
+                attn_mode=mode)["attn_impl"] == mode
+    if mesh == "card":
+        assert all(dryrun.residency_record(a, "decode_32k")["attn_impl"]
+                   == "scan_q" for a in ("qwen1.5-4b", "llava-next-34b"))
+
+
+def test_a_depth_cut_is_the_cut_config():
+    """``lower_cell(..., layers=n)``: the record and the cost of the config
+    cut to n layers (a card run's cut): parameters those of the cut
+    config, the layers' matmul FLOPs linear in n."""
+    full = dryrun.residency_record("qwen1.5-0.5b", "prefill_32k", batch=1)
+    cut = dryrun.residency_record("qwen1.5-0.5b", "prefill_32k", batch=1,
+                                  layers=6)
+    cfg = dryrun.cell_config("qwen1.5-0.5b", 6)
+    assert cfg.n_layers == 6 and cut["n_params"] == cfg.n_params()
+    assert cut["n_params"] < full["n_params"]
+    flops = [dryrun.lower_cell("qwen1.5-0.5b", "decode_32k", batch=8,
+                               layers=n)[0]["roofline"]["matmul_flops_per_device"]
+             for n in (2, 3, 4)]
+    assert flops[2] - flops[1] == flops[1] - flops[0] > 0, flops
+    with pytest.raises(ValueError, match="depth knob"):
+        dryrun.cell_config("whisper-tiny", 2)

@@ -29,6 +29,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
 from repro_torch.models.common import ModelCtx
 from repro_torch.runtime.guard import RecoveryError
+from repro_torch.runtime.scenario import Scenario, run_scenarios
 from repro_torch.runtime.serve_loop import (
     ServeConfig,
     prepare_params_for_serving,
@@ -72,12 +73,15 @@ TRAINING_MODULES = ("core/qlinear.py", "models/attention.py", "models/common.py"
                     "optim/grad_compress.py", "launch/steps.py",
                     "checkpoint/checkpoint.py", "runtime/train_loop.py",
                     "launch/train.py")
+# the serve-cell harness's slice
+SCENARIO_MODULES = ("runtime/scenario.py", "models/attention.py",
+                    "launch/dryrun.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 20
-    for rel in CALIBRATION_MODULES + TRAINING_MODULES:
+    for rel in CALIBRATION_MODULES + TRAINING_MODULES + SCENARIO_MODULES:
         assert REPO / "src" / "repro_torch" / rel in files, rel
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imported_modules(f)
@@ -96,6 +100,7 @@ def test_port_imports_in_a_process_without_jax():
             "import repro_torch.data, repro_torch.optim.adamw\n"
             "import repro_torch.optim.grad_compress, repro_torch.launch.steps\n"
             "import repro_torch.runtime.train_loop, repro_torch.launch.train\n"
+            "import repro_torch.runtime.scenario\n"
             "import repro_torch.__main__\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -117,7 +122,7 @@ def no_cuda():
 @pytest.mark.parametrize("entry", ["resolve_device", "init_params", "prepare",
                                    "serve", "interop", "launcher", "calibrate",
                                    "calibrate_launcher", "train",
-                                   "train_launcher"])
+                                   "train_launcher", "scenario"])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     cfg = get_arch("qwen1.5-0.5b").reduced()
     calls = {
@@ -138,6 +143,9 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
         "train": lambda: train(cfg, ModelCtx(), TrainLoopConfig(steps=1)),
         "train_launcher": lambda: launch_train.main([
             "--arch", "qwen1.5-0.5b", "--reduced", "--steps", "1"]),
+        "scenario": lambda: run_scenarios(
+            [Scenario("cell", "qwen1.5-0.5b", "packed", "hif4")], repeats=1,
+            log=lambda *_: None),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

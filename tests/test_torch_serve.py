@@ -219,14 +219,17 @@ def test_launcher_serves_on_cpu():
                                    for ln in lines)
 
 
-def test_launcher_refuses_flags_not_yet_ported():
-    """Every serve flag and family, the train mode and the dry run are
-    ported; the dry run's vec_q attention form is not, and asking for it
-    exits 2 naming the roadmap, as an arch neither package has exits 2."""
-    out = _launch("--arch", "whisper-tiny", "--attn", "vec_q",
+def test_launcher_refuses_flags_not_yet_ported(tmp_path):
+    """Every serve flag and family, the train mode and the dry run with its
+    vec_q attention form are ported: ``--attn vec_q`` costs a cell and
+    records the form; an arch neither package has exits 2."""
+    out = _launch("--arch", "whisper-tiny", "--shape", "decode_32k",
+                  "--attn", "vec_q", "--out", str(tmp_path),
                   module="repro_torch.launch.dryrun")
-    assert out.returncode == 2 and "vec_q" in out.stderr
-    assert "ROADMAP.md" in out.stderr
+    assert out.returncode == 0, out.stderr
+    assert "1 cells passed, 0 failed" in out.stdout
+    (path,) = tmp_path.iterdir()
+    assert json.loads(path.read_text())["attn_impl"] == "vec_q"
     out = _launch("--arch", "whisper-base", "--reduced", "--device", "cpu")
     assert out.returncode == 2 and "unknown arch 'whisper-base'" in out.stderr
 
@@ -244,7 +247,8 @@ def test_launcher_serves_paged_on_cpu():
     assert out.returncode == 0, out.stderr
     text = out.stdout
     assert "kv page pool [hif4]: 4 pages x 16 tokens (4608 B/page)" in text
-    assert "fused_paged_decode_attention, kv tile 16 of 1 pages" in text
+    # on the CPU the paged wrapper runs its plain version
+    assert "fused_paged_decode_attention_plain, kv tile 16 of 1 pages" in text
     assert ("paged scheduler: max 2 concurrent, 0 shared-page hits, "
             "0 preemptions, 0 LRU evictions, peak 2/4 pages live") in text
     lockstep = _launch(*args)
