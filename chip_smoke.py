@@ -6,7 +6,7 @@
 Phases (any failure ends the run with a nonzero exit):
 
 1. device  — a CUDA device, its name and power limit (nvidia-smi);
-2. build   — the CUDA kernels of src/repro_torch/csrc (six sources, seven
+2. build   — the CUDA kernels of src/repro_torch/csrc (seven sources, eight
              kernels), built with nvcc, one process per source in parallel;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes of the main paths, with times beside the least time
@@ -37,12 +37,18 @@ Phases (any failure ends the run with a nonzero exit):
              scratch entries, partial pages), kernel 4 bitwise kernel 3 at
              block_kv = P at 1, 2, 3, 8 and 33 tiles, a slot of length 0
              bitwise its plain version, a NaN V scale in the scratch page
-             reaching exactly the slots with trailing entries;
+             reaching exactly the slots with trailing entries; the per-token
+             KV append (K and V of a layer in one launch) bitwise its plain
+             version at qwen's decode shape (B 8, Hkv 16, D 64), contiguous
+             and paged (a ragged table; page 0, where retired slots collide,
+             left out), NaN, +-Inf, zeros and bf16's top among the tokens,
+             timed beside its bytes bound;
 4. serve   — the main path: full-width qwen1.5-0.5b, policy paper-iv, impl
              packed, HiF4 KV cache, batch 8, prompt 480, 32 new tokens,
              random weights from --seed; the launch counters must show every
              kernel ran the expected number of times (decode linears: one
-             launch of the decode form each);
+             launch of the decode form each; one KV append a layer a
+             decode step);
 5. pallas  — the same serve under impl pallas with a policy that quantizes
              the tied LM head (paper-iv's rules without its lm_head
              exclusion): per logits call (8 rows) kernel 1 on the
@@ -67,7 +73,7 @@ Phases (any failure ends the run with a nonzero exit):
              vs CPU on the card's final hidden state. Greedy tokens must
              agree, or differ only where the reference's top-2 logit gap is
              within that tolerance.
-7. paged   — the paged path at full width on the first 12 of 24 layers
+7. paged   — the paged path at full width on the first 8 of 24 layers
              (a cut for time): 12 requests sharing a
              256-token prefix through 8 slots and a 24-page HiF4 pool
              (P=64, 32 new tokens, decode chunk 8), which shows shared-prefix
@@ -75,7 +81,7 @@ Phases (any failure ends the run with a nonzero exit):
              request's tokens must equal its solo serve at attn_kv_block=P,
              kernel 4 must launch exactly 12 x the decode steps and kernel 3
              never.
-8. robust  — the same requests and pool, the weights on the first 3 of
+8. robust  — the same requests and pool, the weights on the first 2 of
              24 layers: a serving artifact saved
              (packed on the card) and loaded back onto it, serving the
              in-memory prepare's tokens, and one flipped byte raising
@@ -98,7 +104,7 @@ Phases (any failure ends the run with a nonzero exit):
              kernels 3 and 4 at their new head layouts (rep 4 / D 128, rep
              12 / D 192, rep 2 / D 64), all timed; lockstep serves (paper-
              iv, impl packed, HiF4 KV, batch 8, prompt 480) at full width
-             of qwen3-4b (all 36 layers) and
+             of qwen3-4b (12 of 36 layers) and
              granite-moe-1b-a400m on 6 of 24 (32 new tokens)
              and nemotron-4-340b on its first 2 of 96 layers
              (8 new tokens, the packing's peak memory), exact launches per
@@ -117,8 +123,8 @@ Phases (any failure ends the run with a nonzero exit):
              six linears, N 64 and 128 among them; kernel 5's tensor-core
              body and decode form at zamba2's dense linears, N 64 and 80
              among them); lockstep serves at full width, weights drawn on
-             the card at 5x: mamba2-1.3b (24 of 48 layers, paper-iv, impl
-             packed) and zamba2-2.7b (30 of 54 Mamba layers, 5 calls of the
+             the card at 5x: mamba2-1.3b (16 of 48 layers, paper-iv, impl
+             packed) and zamba2-2.7b (18 of 54 Mamba layers, 3 calls of the
              shared block, impl pallas, HiF4 KV narrowed to bf16 with one
              KVFallbackWarning), batch 8, 32 new tokens, exact launches per
              kernel and shape, tokens that vary, the first 4 steps against
@@ -178,12 +184,22 @@ Phases (any failure ends the run with a nonzero exit):
              2-layer full-width cut, one batch of (4, 128), one step on the
              card and on the CPU: the loss, every leaf's gradient and the
              updated params within stated tolerances; (d) the cut's run
-             killed after step 5 (checkpoint at 4, git-ignored .train/) and
-             resumed: its losses equal the uninterrupted run's bitwise; (e)
-             the cut trained 360 steps (about 60 s), its loss curve, then
-             phase e2e's card / card plain / CPU comparison on the trained
-             weights (shares printed beside the init-scale ones, not
-             bounded; card vs card plain bitwise; tokens checked).
+             killed after step 3 (checkpoint at 2, git-ignored .train/) and
+             resumed: its losses and final params equal the uninterrupted
+             run's bitwise (the deterministic-algorithms warnings printed
+             beside); (e) the cut trained TRAIN["trained_steps"] steps, its
+             loss curve, and the card-vs-CPU share of its prefill logits
+             beside the untrained cut's (printed, not bounded); (f) the
+             five non-dense families (TRAIN_FAMILIES): one step card vs CPU
+             of 2-layer full-width cuts of granite-moe-1b-a400m,
+             mamba2-1.3b, zamba2-2.7b (its shared block once, after them)
+             and whisper-tiny (seeded frames) within TRAIN_CUT_TOL (zamba2
+             within TRAIN_FAMILY_TOL); python
+             -m repro_torch train --layers N for granite, mamba2 and zamba2
+             (median step ms, tokens/s, peak memory); their cuts killed and
+             resumed bitwise, as (d); llava-next-34b's 2-layer full-width
+             cut trained 4 steps on the card (time, peak memory) and its
+             reduced config card vs CPU.
 
 14. dryrun — the dry run (repro_torch.launch.dryrun, on meta on this
              machine's CPU) held against real runs of the same steps at full
@@ -209,14 +225,18 @@ Phases (any failure ends the run with a nonzero exit):
              3 beside SDPA on the dequantized K/V).
 15. scenario — the serve-cell harness (repro_torch.runtime.scenario.
              run_scenarios) at full width, weights from --seed, repeats 3,
-             the gate pair qwen-packed-hif4 / its guarded twin: qwen1.5-0.5b
+             the gate pairs qwen-packed-hif4 / its guarded twin and
+             qwen-packed-bf16 / qwen-packed-hif4 (the reference's gate
+             hif4_over_bf16_kv_decode: bf16 ms / HiF4 ms printed beside its
+             0.9 limit, not asserted): qwen1.5-0.5b
              (batch 8, prompt 480, 8 tokens) packed HiF4, guarded, bf16 KV,
              qdq, paged (16-token pages) and paged with the journal and a
              crash; whisper-tiny (1 536 frames) and mamba2-1.3b (prompt
              512). Every probed dispatch holds and agrees with the kernels
              each cell's decode launched (kernel 3 in the HiF4 scan cells
              only, kernel 4 at P = 16 in the paged ones only, kernel 2's
-             decode form in every packed cell, nothing in the qdq cell);
+             decode form in every packed cell, nothing in the qdq cell; one
+             KV append a layer a step on every HiF4 cache, none on bf16);
              kernel 4 on a paged cell's pool and kernel 3 past the cache's
              capacity (the timing loop decodes beyond it; writes clamp at
              the last slot) within rtol 2^-7, atol 1e-3 of their plain
@@ -1043,6 +1063,20 @@ def attention_bound_ms(hkv, d, length, pages, tokens, heads=None) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S) * 1e3
 
 
+def masked_sdpa_ms(dense, length) -> float:
+    """The yardstick at ragged lengths: one scaled_dot_product_attention
+    call on the dequantized bf16 K/V ``dense`` [(q (B, H, 1, D), k, v (B, H,
+    S, D)), ...] with each slot's keys past its length masked out."""
+    import torch
+    import torch.nn.functional as F
+
+    s = dense[0][1].shape[2]
+    mask = (torch.arange(s, device=length.device)[None, :]
+            < length[:, None])[:, None, None, :]
+    return cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), dense, iters=100)
+
+
 def check_attention(dev, records):
     import torch
     import torch.nn.functional as F
@@ -1116,6 +1150,7 @@ def check_attention(dev, records):
     s_plain_ms = cuda_ms(lambda *a: fused_decode_attention_plain(
         *a, hkv, d, block_kv=64), solo, iters=10)
     s_bound_ms = attention_bound_ms(hkv, d, ragged, None, cap)
+    s_library_ms = masked_sdpa_ms(dense, ragged)
     # the models-level packed decode (one dequantized KV chunk at a time, in
     # plain PyTorch) against kernel 3 on the same cache and ragged lengths
     from repro_torch.models.attention import decode_attention_packed
@@ -1135,7 +1170,9 @@ def check_attention(dev, records):
     print(f"  fused_decode_attention solo shape B=8 Hkv=16 D=64 S=512 "
           f"block_kv=64, lengths {RAGGED_LENGTH}: max |d| {float(err.max()):.3e} "
           f"vs plain; {_times(s_t)} plain_ms={s_plain_ms:.5f} "
-          f"bound_ms={s_bound_ms:.6f} (bytes)")
+          f"bound_ms={s_bound_ms:.6f} (bytes) library_ms={s_library_ms:.5f} "
+          f"(scaled_dot_product_attention under the length mask, on the "
+          f"dequantized K/V)")
     records["fused_decode_attention"] = {
         "name": "fused_decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_attention.cu",
@@ -1147,7 +1184,115 @@ def check_attention(dev, records):
         "shape": "B=8 Hkv=16 D=64 S=512",
         "solo": {"shape": f"B=8 Hkv=16 D=64 S=512 block_kv=64 lengths "
                           f"{RAGGED_LENGTH}", **s_t, "plain_ms": s_plain_ms,
-                 "bound_ms": s_bound_ms, "bound_by": "bytes"}}
+                 "bound_ms": s_bound_ms, "bound_by": "bytes",
+                 "library_ms": s_library_ms}}
+
+
+def _kv_append_bound_ms(b, f, pages_numel=0, tensors=2):
+    """The append's least time: each tensor's new rows (bf16) read, its codes,
+    meta words and bf16 tail of the token written, the positions and the
+    page table read, each byte once; 16 f32 ops per value (as kernel 1's
+    bound) are far below the bytes' time."""
+    g, t = divmod(f, 64)
+    nbytes = tensors * b * (2 * f + 32 * g + 4 * g + 2 * t) + 8 * b \
+        + 4 * pages_numel
+    return max(nbytes / HBM_BYTES_PER_S,
+               16 * tensors * b * f / F32_FLOPS_PER_S) * 1e3
+
+
+def _kv_tokens(gen, b, hkv, d, dev, n):
+    """``n`` (K, V) pairs of new tokens (B, 1, Hkv, Dh) bf16; the first pair
+    holds a zero group, a NaN, +-Inf and bf16's top."""
+    import torch
+
+    out = []
+    for i in range(n):
+        k, v = ((torch.randn(b, 1, hkv, d, generator=gen) * 2).to(torch.bfloat16)
+                for _ in range(2))
+        if i == 0:
+            k[0, 0, 0] = 0.0
+            k[1, 0, 1, 3] = float("nan")
+            k[2, 0, 2, 7] = float("inf")
+            v[3, 0, 3, 9] = -float("inf")
+            v[4, 0, 4] = torch.finfo(torch.bfloat16).max
+        out.append((k.to(dev), v.to(dev)))
+    return out
+
+
+def check_kv_append(dev, records):
+    """The per-token KV append (K and V of a layer in one launch) bitwise its
+    plain version at qwen1.5-0.5b's decode shape (B 8, Hkv 16, Dh 64): the
+    contiguous kernel-tile cache (capacity 488, per-slot positions, one past
+    the capacity) and the paged pool (P 64, a ragged table: slots 5-7 own no
+    page and collide in the scratch page 0, which the comparison leaves
+    out; slot 4's position is past its row), every leaf's bytes; timed on
+    the contiguous cache."""
+    import torch
+    from repro_torch.core import kvcache
+    from repro_torch.kernels.kv_append import kv_append
+
+    gen = torch.Generator().manual_seed(26)
+    b, hkv, d, cap, P = 8, 16, 64, 488, 64
+    f = hkv * d
+    g, _ = divmod(f, 64)
+
+    def cache(rows, tokens):
+        return {"codes": torch.randint(0, 256, (rows, g * 32, tokens),
+                                       dtype=torch.uint8, generator=gen).to(dev),
+                "meta": torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, g, tokens),
+                                      dtype=torch.int32, generator=gen).to(dev),
+                "tail": torch.zeros(rows, 0, tokens, dtype=torch.bfloat16,
+                                    device=dev)}
+
+    def clone(c):
+        return {key: {k: a.clone() for k, a in c[key].items()} for key in c}
+
+    news = _kv_tokens(gen, b, hkv, d, dev, 4)
+    pos = torch.tensor([480, 481, 0, 63, 64, 300, 487, 500], device=dev)
+    table = torch.zeros(b, 8, dtype=torch.int32)
+    table[:5] = torch.arange(1, 41, dtype=torch.int32).reshape(5, 8)
+    table[4, 5:] = 0                       # slot 4: pos 64 + 5 * 64 past it
+    table = table.to(dev)
+    ppos = torch.tensor([480, 70, 3, 511, 400, 5, 6, 7], device=dev)
+    worst = 0
+    for label, rows, tokens, pages, ps in (
+            ("contiguous", b, cap, None, pos), ("paged", 41, P, table, ppos)):
+        base = {"k": cache(rows, tokens), "v": cache(rows, tokens)}
+        got, want = clone(base), clone(base)
+        for i, (k, v) in enumerate(news):
+            kvcache.append_kv(got, k, v, ps + i, pages)
+            kvcache.kv_append_plain([want["k"], want["v"]], [k, v], ps + i, pages)
+        torch.cuda.synchronize()
+        for t in ("k", "v"):
+            for key in ("codes", "meta"):
+                x, y = got[t][key], want[t][key]
+                if pages is not None:
+                    x, y = x[1:], y[1:]
+                n = int((x != y).sum())
+                worst = max(worst, n)
+                check(n == 0, f"kv_append {label}: {n} {t}.{key} bytes differ "
+                      f"from the plain version")
+        print(f"  kv_append {label} B={b} Hkv={hkv} D={d} "
+              f"{'P=64 ragged table' if pages is not None else f'S={cap}'}: "
+              f"4 appends bitwise the plain version (NaN, +-Inf, zeros, "
+              f"bf16's top among the tokens"
+              f"{'; page 0 left out' if pages is not None else ''})")
+    caches = [{"k": cache(b, cap), "v": cache(b, cap)} for _ in range(4)]
+    args = [([c["k"], c["v"]], [k, v], pos) for c, (k, v) in zip(caches, news)]
+    t = timed(kv_append, args)
+    plain_ms = cuda_ms(kvcache.kv_append_plain, args, iters=20)
+    bound_ms = _kv_append_bound_ms(b, f)
+    print(f"  kv_append contiguous B={b} Hkv={hkv} D={d} S={cap}: {_times(t)} "
+          f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} (bytes); no "
+          f"PyTorch call computes it (library_ms null)")
+    records["kv_append"] = {
+        "name": "kv_append", "route": "cuda",
+        "source": "src/repro_torch/csrc/kv_append.cu",
+        "replaces": "no TPU kernel: src/repro/core/kvcache.py:278 and :418 "
+                    "(append_token, append_token_paged) under jit",
+        "max_abs_err": float(worst), **t, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "shape": f"K and V (B={b}, 1, Hkv={hkv}, D={d}) into S={cap}"}
 
 
 def _paged_pool(n_pages, P, hkv, d, gen, dev):
@@ -1335,9 +1480,19 @@ def check_paged_attention(dev, records):
     r_plain_ms = cuda_ms(lambda *a: fused_paged_decode_attention_plain(*a, hkv, d),
                          r_args, iters=10)
     r_bound_ms = attention_bound_ms(hkv, d, length, main, P)
+    r_dense = [(q[:, :, None],
+                kvcache.dequantize_kv(_contiguous_from_pages(kp, main), hkv,
+                                      d).transpose(1, 2),
+                kvcache.dequantize_kv(_contiguous_from_pages(vp, main), hkv,
+                                      d).transpose(1, 2))
+               for kp, vp in ragged_pools]
+    r_library_ms = masked_sdpa_ms(r_dense, length)
+    del r_dense
     print(f"  fused_paged_decode_attention ragged table B=8 Hkv=16 D=64 P=64 "
           f"max_pages=8 NP=24: {_times(r_t)} plain_ms={r_plain_ms:.5f} "
-          f"bound_ms={r_bound_ms:.6f} (bytes)")
+          f"bound_ms={r_bound_ms:.6f} (bytes) library_ms={r_library_ms:.5f} "
+          f"(scaled_dot_product_attention under the length mask, on the "
+          f"gathered, dequantized K/V)")
     del ragged_pools, r_args
     n_pages = 1 + B * maxp
     table = torch.arange(1, n_pages, dtype=torch.int32, device=dev).reshape(B, maxp)
@@ -1375,7 +1530,8 @@ def check_paged_attention(dev, records):
         "shape": "B=8 Hkv=16 D=64 P=64 max_pages=8",
         "ragged": {"shape": f"B=8 Hkv=16 D=64 P=64 table {RAGGED_TABLE} lengths "
                             f"{RAGGED_LENGTH}", **r_t, "plain_ms": r_plain_ms,
-                   "bound_ms": r_bound_ms, "bound_by": "bytes"}}
+                   "bound_ms": r_bound_ms, "bound_by": "bytes",
+                   "library_ms": r_library_ms}}
 
 
 # ---------------------------------------------------------------------------
@@ -1456,7 +1612,7 @@ def phase_serve(dev, seed, records):
             "fused_decode_matmul": cfg.n_layers * sites * steps,
             "fused_decode_attention": cfg.n_layers * steps,
             "fused_paged_decode_attention": 0, "bfp_matmul_quantized": 0,
-            "bfp_decode_matmul": 0}
+            "bfp_decode_matmul": 0, "kv_append": cfg.n_layers * steps}
     print(f"  launches on the main path: {launches} (expected {want})")
     check(launches == want, f"launch counts {launches} != expected {want}")
     for name, n in launches.items():
@@ -1554,7 +1710,8 @@ def phase_pallas(dev, seed, records):
             "fused_decode_matmul": cfg.n_layers * sites * steps,
             "fused_decode_attention": cfg.n_layers * steps,
             "fused_paged_decode_attention": 0,
-            "bfp_matmul_quantized": calls, "bfp_decode_matmul": calls}
+            "bfp_matmul_quantized": calls, "bfp_decode_matmul": calls,
+            "kv_append": cfg.n_layers * steps}
     print(f"  launches in the pallas run: {launches} (expected {want})")
     check(launches == want, f"launch counts {launches} != expected {want}")
     per_shape = {key[1]: v for key, v in build.SHAPE_LAUNCHES.items()
@@ -1609,9 +1766,10 @@ def phase_pallas(dev, seed, records):
     _check_tokens_vary("nvfp4-baseline", toks)
     check(launches["fused_packed_matmul"] == 0
           and launches["bfp_matmul_quantized"] == 0
-          and launches["fused_decode_attention"] == cfg.n_layers * steps,
+          and launches["fused_decode_attention"] == cfg.n_layers * steps
+          and launches["kv_append"] == cfg.n_layers * steps,
           f"nvfp4-baseline launches {launches}: kernels 2 and 5 must not run, "
-          f"kernel 3 {cfg.n_layers} x {steps} times")
+          f"kernel 3 and the KV append {cfg.n_layers} x {steps} times")
     del params, sparams
 
     # formats on the card: qdq bitwise equal to the CPU port's
@@ -1670,9 +1828,10 @@ def head_inputs():
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the engine's kernel entry points to their plain PyTorch versions
-    (for a run on the card that launches no kernel of the port)."""
-    from repro_torch.core import engine
+    """Route the engine's kernel entry points and the KV append to their
+    plain PyTorch versions (for a run on the card that launches no kernel of
+    the port)."""
+    from repro_torch.core import engine, kvcache
     from repro_torch.kernels import ops
     from repro_torch.kernels.bfp_matmul import (
         bfp_decode_matmul_plain, bfp_matmul_quantized_plain)
@@ -1683,8 +1842,10 @@ def plain_versions():
 
     saved = (engine.hif4_quantize, engine.fused_packed_matmul,
              engine.fused_decode_matmul, engine.fused_decode_attention,
-             ops.hif4_quantize, ops.bfp_matmul_quantized, ops.bfp_decode_matmul)
+             ops.hif4_quantize, ops.bfp_matmul_quantized, ops.bfp_decode_matmul,
+             kvcache.kv_append)
     engine.hif4_quantize = ops.hif4_quantize = absorbed_activation
+    kvcache.kv_append = kvcache.kv_append_plain
     engine.fused_packed_matmul = fused_packed_matmul_plain
     engine.fused_decode_matmul = fused_decode_matmul_plain
     engine.fused_decode_attention = (
@@ -1699,7 +1860,7 @@ def plain_versions():
         (engine.hif4_quantize, engine.fused_packed_matmul,
          engine.fused_decode_matmul, engine.fused_decode_attention,
          ops.hif4_quantize, ops.bfp_matmul_quantized,
-         ops.bfp_decode_matmul) = saved
+         ops.bfp_decode_matmul, kvcache.kv_append) = saved
 
 
 # card vs CPU: the largest share of prefill logits outside rtol=0.05,
@@ -1723,8 +1884,7 @@ def phase_e2e(dev, seed):
 
     cfg = dataclasses.replace(get_arch("qwen1.5-0.5b"), n_layers=2)
     params = lm.init_params(cfg, seed + 2, device="cpu")
-    E2E_INIT_SHARES.update(e2e_compare(dev, cfg, params, e2e_prompts(cfg, seed),
-                                       E2E_SHARE))
+    E2E_INIT_SHARES.update(e2e_compare(dev, cfg, params, e2e_prompts(cfg, seed)))
 
 
 def e2e_prompts(cfg, seed):
@@ -1773,12 +1933,12 @@ def e2e_prefill_shares(dev, cfg, params, tokens) -> dict:
     return shares
 
 
-def e2e_compare(dev, cfg, params, tokens, limits) -> dict:
+def e2e_compare(dev, cfg, params, tokens) -> dict:
     """Serve ``params`` (on the CPU) three ways under paper-iv and the head
     policy; returns each policy's share of prefill logits outside
-    rtol=0.05, atol=0.1 card vs cpu, bounded by ``limits`` (None: printed
-    only). Card kernels vs card plain versions stay bitwise; tokens go
-    through :func:`_check_tokens` either way."""
+    rtol=0.05, atol=0.1 card vs cpu, bounded by E2E_SHARE. Card kernels vs
+    card plain versions stay bitwise; tokens go through
+    :func:`_check_tokens`."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.runtime.serve_loop import ServeConfig, serve
@@ -1804,7 +1964,7 @@ def e2e_compare(dev, cfg, params, tokens, limits) -> dict:
         run("card", dev)
         ran = {k for k, n in build.LAUNCHES.items() if n}
         want = {"hif4_quantize", "fused_packed_matmul", "fused_decode_matmul",
-                "fused_decode_attention"}
+                "fused_decode_attention", "kv_append"}
         if policy == "head":               # the head: kernel 5's decode form
             want |= {"bfp_matmul_quantized", "bfp_decode_matmul"}
         check(ran == want, f"the card run launched {build.LAUNCHES}")
@@ -1831,16 +1991,11 @@ def e2e_compare(dev, cfg, params, tokens, limits) -> dict:
         noise = _outside_share(f"cpu (attention chunks of {REORDER_CHUNK}) vs "
                                f"cpu", lg_r, lg_c)
         shares[policy] = share
-        if limits is None:
-            print(f"  card vs cpu: not bounded (the CPU's own share under the "
-                  f"reordered attention: {100 * noise:.3f}%)")
-        else:
-            print(f"  card vs cpu limit {100 * limits[policy]:.0f}% (the CPU's "
-                  f"own share under the reordered attention: "
-                  f"{100 * noise:.3f}%)")
-            check(share <= limits[policy], f"more than "
-                  f"{100 * limits[policy]:.0f}% of the prefill logits outside "
-                  f"rtol=0.05, atol=0.1 between card and cpu")
+        print(f"  card vs cpu limit {100 * E2E_SHARE[policy]:.0f}% (the CPU's "
+              f"own share under the reordered attention: {100 * noise:.3f}%)")
+        check(share <= E2E_SHARE[policy], f"more than "
+              f"{100 * E2E_SHARE[policy]:.0f}% of the prefill logits outside "
+              f"rtol=0.05, atol=0.1 between card and cpu")
         if policy == "head":
             _check_head_on_one_hidden_state(cfg, params, ctx, tokens, dev)
         _check_tokens("card vs cpu", toks_k, "cpu", runs, cfg, params, ctx, tokens)
@@ -1939,9 +2094,10 @@ def _top2(cfg, params, ctx, prompt, emitted, device, *, plain: bool):
 PAGED = {"page_tokens": 64, "new_tokens": 32, "decode_chunk": 8, "slots": 8,
          "prefix": 256, "tails": (224, 96, 160, 32, 192, 128, 64, 208, 144, 48,
                                   176), "kv_pages": 24, "flash_chunk": 16,
-         # the first 12 of qwen1.5-0.5b's 24 layers: a cut for the script's
-         # time (the dryrun phase's 32 768-token prefills came after it)
-         "layers": 12}
+         # the first 8 of qwen1.5-0.5b's 24 layers: a cut for the script's
+         # time (12 until phase train's part (f) came; the scheduling
+         # depends on the prompts alone)
+         "layers": 8}
 
 
 def paged_requests(vocab: int, seed: int, tails=PAGED["tails"]) -> list:
@@ -2031,8 +2187,11 @@ def phase_paged(dev, seed, records):
     sparams = prepare_params_for_serving(params, cfg, ctx.plan, device=dev)
     del params
     launches = paged_run(dev, cfg, sparams, ctx, paged_requests(cfg.vocab, seed))
-    records.setdefault("fused_paged_decode_attention", {})["launches"] = launches[
-        "fused_paged_decode_attention"]
+    k4 = records.setdefault("fused_paged_decode_attention", {})
+    k4["launches"] = launches["fused_paged_decode_attention"]
+    k4.setdefault("ragged", {})["launches"] = k4["launches"]   # ragged tables
+    records.setdefault("fused_decode_attention", {}).setdefault("solo", {})[
+        "launches"] = launches["solo_fused_decode_attention"]
 
 
 def paged_run(dev, cfg, sparams, ctx, reqs, solo=None) -> dict:
@@ -2120,13 +2279,16 @@ def paged_run(dev, cfg, sparams, ctx, reqs, solo=None) -> dict:
           "eviction and a preemption")
     want4 = cfg.n_layers * steps
     print(f"  launches in the paged run: {launches} (fused_paged_decode_attention "
-          f"expected {cfg.n_layers} x {steps} = {want4}, fused_decode_attention 0)")
+          f"and kv_append expected {cfg.n_layers} x {steps} = {want4}, "
+          f"fused_decode_attention 0)")
     check(launches["fused_paged_decode_attention"] == want4
+          and launches["kv_append"] == want4
           and launches["fused_decode_attention"] == 0,
           f"paged run launches {launches}")
     check({k for k, n in launches.items() if n} == {
         "hif4_quantize", "fused_packed_matmul", "fused_decode_matmul",
-        "fused_paged_decode_attention"}, f"paged run launched {launches}")
+        "fused_paged_decode_attention", "kv_append"},
+        f"paged run launched {launches}")
     # every packed linear of at most DECODE_M_MAX rows is one launch of the
     # decode form; a longer one (a prompt's prefill) kernel 1, then kernel 2
     decode = sum(r <= DECODE_M_MAX for r in rows)
@@ -2154,6 +2316,11 @@ def paged_run(dev, cfg, sparams, ctx, reqs, solo=None) -> dict:
           f"requests {ids} equal ({n_distinct} distinct tokens; request 0: "
           f"{res[0].tolist()})")
     check(not differ, f"requests {differ}: paged tokens differ from solo")
+    # the solo serves: kernel 3 at block_kv = P (the paged run launched none)
+    launches["solo_fused_decode_attention"] = build.LAUNCHES[
+        "fused_decode_attention"]
+    print(f"  the {len(ids)} solo serves launched kernel 3 (block_kv={P}) "
+          f"{launches['solo_fused_decode_attention']} times")
     return launches
 
 
@@ -2169,11 +2336,12 @@ def paged_run(dev, cfg, sparams, ctx, reqs, solo=None) -> dict:
 # served on two of the requests (paged == solo, so their tokens are the
 # full run's)
 ROBUST = {"victim": 3, "fault_layers": 2, "slot_requests": 4, "slot_slots": 2,
-          "artifact_requests": (0, 3), "layers": 3}
+          "artifact_requests": (0, 3), "layers": 2}
 # the phase's paged runs (artifact, guard, crash + resume) run the first
 # ``layers`` of qwen1.5-0.5b's 24 at full width (24 until the train phase
-# came, 6 until the scenario phase came; cut for the script's time: the
-# paged schedule depends on the prompt lengths alone)
+# came, 6 until the scenario phase came, 3 until the non-dense families'
+# training came; cut for the script's time: the paged schedule depends on
+# the prompt lengths alone)
 
 
 def _first_layers(tree, n: int):
@@ -2470,7 +2638,7 @@ FAMILY_BATCH, FAMILY_PROMPT = 8, 480
 # linears alone are ~186 GB); granite on 6 of its 24 layers, for the
 # script's time (at full depth its serve took 24.6 s, 13.8 s more than on
 # 12; NVIDIA H100 80GB HBM3, 700 W)
-FAMILY_SERVES = (("qwen3-4b", None, 32), ("granite-moe-1b-a400m", 6, 32),
+FAMILY_SERVES = (("qwen3-4b", 12, 32), ("granite-moe-1b-a400m", 6, 32),
                  ("nemotron-4-340b", 2, 8))
 # the (K, N) each arch gives kernel 2 that qwen1.5-0.5b's path does not; at
 # 8 rows nemotron's FFN down-projection (73728, 18432) runs kernel 1, then
@@ -2786,8 +2954,9 @@ def expected_launches(cfg, shapes, steps, m, mp, attention_layers=None
     """The launches (all, and per (kernel, shape)) of a lockstep serve:
     per layer each packed linear once at the prefill's ``mp`` rows (kernel
     1, then kernel 2) and once per decode step at ``m`` rows (the decode
-    form, or where its plan says so kernel 1 then kernel 2); kernel 3 once
-    per attention layer (default: every layer) and step."""
+    form, or where its plan says so kernel 1 then kernel 2); kernel 3 and
+    the KV append (K and V in one launch) once per attention layer
+    (default: every layer) and step."""
     from repro_torch.kernels import build
     from repro_torch.kernels.fused_matmul import decode_plan
 
@@ -2809,8 +2978,11 @@ def expected_launches(cfg, shapes, steps, m, mp, attention_layers=None
         else:
             add("hif4_quantize", (m, k), L * steps)
             add("fused_packed_matmul", (m, k, n), L * steps)
-    want["fused_decode_attention"] = (
-        L if attention_layers is None else attention_layers) * steps
+    appends = (L if attention_layers is None else attention_layers) * steps
+    want["fused_decode_attention"] = appends
+    if appends:
+        add("kv_append", (m, cfg.attn.n_kv_heads, cfg.attn.d_head, 2, False),
+            appends)
     return want, per
 
 
@@ -3174,8 +3346,8 @@ def family_e2e(dev, seed):
     run("card", dev)
     ran = {k for k, n in build.LAUNCHES.items() if n}
     check(ran == {"hif4_quantize", "fused_packed_matmul", "fused_decode_matmul",
-                  "fused_decode_attention"}, f"the card run launched "
-          f"{build.LAUNCHES}")
+                  "fused_decode_attention", "kv_append"}, f"the card run "
+          f"launched {build.LAUNCHES}")
     with plain_versions():
         run("card-plain", dev)
     run("cpu", cpu)
@@ -3246,11 +3418,12 @@ def phase_families(dev, seed, records):
 
 SSM_BATCH, SSM_PROMPT = 8, 512      # the prompt a multiple of the SSD chunk
 # (arch, impl, layers (None: all), new tokens): lockstep serves at full
-# width, mamba2 on 24 of its 48 layers and zamba2 on 30 of 54 (5 calls of
+# width, mamba2 on 16 of its 48 layers and zamba2 on 18 of 54 (3 calls of
 # the shared block), for the script's time (full depth until the scenario
-# phase came, which serves mamba2-1.3b at full depth)
-SSM_SERVES = (("mamba2-1.3b", "packed", 24, 32),
-              ("zamba2-2.7b", "pallas", 30, 32))
+# phase came, which serves mamba2-1.3b at full depth; 24 and 30 until the
+# non-dense families' training came)
+SSM_SERVES = (("mamba2-1.3b", "packed", 16, 32),
+              ("zamba2-2.7b", "pallas", 18, 32))
 # (K, N) of mamba2's six packed linears (w_z / w_x, w_b / w_c, w_dt, w_out)
 SSM_PACKED_SHAPES = ((2048, 4096), (2048, 128), (2048, 64), (4096, 2048))
 # the e2e cut: mamba2 at full width on 2 layers, batch 2, prompt 64
@@ -3652,7 +3825,8 @@ def encdec_expected(cfg, sparams, steps, m, mp) -> tuple[dict, dict]:
     for the cross K and V of each decoder layer (the encoder output,
     projected once); the decode form for each decoder linear (self q, k, v,
     o; cross q, o; the MLP's two) on BOS and at each step, ``m`` rows;
-    kernel 3 for the self and the cross cache of each layer and step."""
+    kernel 3 for the self and the cross cache of each layer and step, the
+    KV append for the self cache only."""
     from repro_torch.kernels import build
 
     a, d, L, E = cfg.attn, cfg.d_model, cfg.n_layers, cfg.enc_layers
@@ -3677,6 +3851,7 @@ def encdec_expected(cfg, sparams, steps, m, mp) -> tuple[dict, dict]:
         add("fused_decode_matmul", (m, k, n), L * (1 + steps))
         add("fused_packed_matmul", None, L * (1 + steps))
     want["fused_decode_attention"] = 2 * L * steps
+    add("kv_append", (m, a.n_kv_heads, a.d_head, 2, False), L * steps)
     return want, per
 
 
@@ -3743,8 +3918,8 @@ def encdec_e2e(dev, seed):
     run("card", dev)
     ran = {k for k, n in build.LAUNCHES.items() if n}
     check(ran == {"hif4_quantize", "fused_packed_matmul", "fused_decode_matmul",
-                  "fused_decode_attention"}, f"the card run launched "
-          f"{build.LAUNCHES}")
+                  "fused_decode_attention", "kv_append"}, f"the card run "
+          f"launched {build.LAUNCHES}")
     with plain_versions():
         run("card-plain", dev)
     run("cpu", torch.device("cpu"))
@@ -4047,8 +4222,8 @@ def phase_calibrate(dev, seed):
 # 372 steps took 56.2 and 62.0 s; NVIDIA H100 80GB HBM3, 700 W), a fixed
 # count so the trained weights are the same in every run
 TRAIN = {"arch": "qwen1.5-0.5b", "steps": 16, "batch": 8, "seq": 128,
-         "cut_layers": 2, "cut_batch": 4, "resume_steps": 6, "kill_at": 4,
-         "trained_steps": 360, "prompt": 64}
+         "cut_layers": 2, "cut_batch": 4, "resume_steps": 4, "kill_at": 2,
+         "trained_steps": 120, "prompt": 64}
 TRAIN_OUT = ROOT / ".train"
 # (a) (B, S, H, D, chunk): the train shape and S 512 with 256-chunks
 TRAIN_FLASH = ((8, 128, 16, 64, 128), (8, 512, 16, 64, 256))
@@ -4176,20 +4351,15 @@ class _Tee:
             st.flush()
 
 
-def train_full(dev, seed):
-    """(b) ``python -m repro_torch train`` in-process at full width and
-    depth: finite, falling losses and no kernel launch (impl qdq)."""
+def _launcher(argv) -> dict:
+    """``python -m repro_torch`` + argv in-process: its losses and summary
+    (median step ms, tokens/s, peak memory); no kernel may launch."""
     import io
     import re
 
-    import torch
     from repro_torch import __main__ as front_door
     from repro_torch.kernels import build
 
-    t = TRAIN
-    argv = ["train", "--arch", t["arch"], "--steps", str(t["steps"]),
-            "--global-batch", str(t["batch"]), "--seq-len", str(t["seq"]),
-            "--seed", str(seed), "--log-every", "1"]
     print(f"  python -m repro_torch {' '.join(argv)}")
     build.reset_launches()
     buf = io.StringIO()
@@ -4201,17 +4371,31 @@ def train_full(dev, seed):
     check(not launched, f"training launched kernels {launched} (impl qdq)")
     text = buf.getvalue()
     losses = [float(x) for x in re.findall(r"step\s+\d+ loss (\S+) \(", text)]
-    check(len(losses) == t["steps"], f"{len(losses)} loss lines")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    summary = re.search(r"median step (\S+) ms, (\S+) tokens/s, peak memory "
+                        r"(.+)$", text, re.M)
+    check(summary is not None, "no step-time line")
+    return {"losses": losses, "median_ms": float(summary.group(1)),
+            "tokens_s": float(summary.group(2)), "peak": summary.group(3)}
+
+
+def train_full(dev, seed):
+    """(b) ``python -m repro_torch train`` in-process at full width and
+    depth: finite, falling losses and no kernel launch (impl qdq)."""
+    import torch
+
+    t = TRAIN
+    r = _launcher(["train", "--arch", t["arch"], "--steps", str(t["steps"]),
+                   "--global-batch", str(t["batch"]), "--seq-len",
+                   str(t["seq"]), "--seed", str(seed), "--log-every", "1"])
+    losses = r["losses"]
+    check(len(losses) == t["steps"], f"{len(losses)} loss lines")
     first, last = sum(losses[:4]) / 4, sum(losses[-4:]) / 4
     print(f"  losses {' '.join(f'{x:.4f}' for x in losses)}; mean of the "
           f"first 4 {first:.4f}, of the last 4 {last:.4f}")
     check(last < first, "the loss did not fall over the run")
-    summary = re.search(r"median step (\S+) ms, (\S+) tokens/s, peak memory "
-                        r"(.+)$", text, re.M)
-    check(summary is not None, "no step-time line")
-    print(f"  full width and depth: median step {summary.group(1)} ms, "
-          f"{summary.group(2)} tokens/s, peak memory {summary.group(3)} "
+    print(f"  full width and depth: median step {r['median_ms']} ms, "
+          f"{r['tokens_s']} tokens/s, peak memory {r['peak']} "
           f"(torch.cuda.max_memory_allocated); {card_line()}")
     torch.cuda.empty_cache()
 
@@ -4248,11 +4432,13 @@ def _rel_by_leaf(names, got, want, dev) -> dict:
 
 
 def train_card_vs_cpu(dev, seed, cfg, raw, fmt="hif4", batch_rows=None,
-                      bounded=True):
-    """(c) One step of the cut from the same weights and batch on the card
+                      bounded=True, batch=None, tol=None, label=None):
+    """(c) One step of the cut from the same weights and batch (default the
+    synthetic tokens; ``batch`` a family's inputs on the host) on the card
     and on the CPU: the loss, and by the relative norm of each leaf's
     difference its gradient, its AdamW first moment and its change
-    p_new - p_old (bounded by TRAIN_CUT_TOL, or printed only)."""
+    p_new - p_old (bounded by ``tol``, default TRAIN_CUT_TOL, or printed
+    only). Returns the worst reading of each."""
     import torch
     from repro_torch.checkpoint.checkpoint import (tree_flatten, tree_leaves,
                                                    tree_unflatten)
@@ -4261,9 +4447,11 @@ def train_card_vs_cpu(dev, seed, cfg, raw, fmt="hif4", batch_rows=None,
     from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
-    batch = SyntheticLMDataset(cfg.vocab, TRAIN["seq"],
-                               batch_rows or TRAIN["cut_batch"],
-                               seed=seed).batch_at(0)
+    if batch is None:
+        batch = {"tokens": SyntheticLMDataset(
+            cfg.vocab, TRAIN["seq"], batch_rows or TRAIN["cut_batch"],
+            seed=seed).batch_at(0)["tokens"]}
+    label = label or fmt
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     old = [x.detach().float().cpu() for x in tree_flatten(raw)]
     out = {}
@@ -4273,7 +4461,7 @@ def train_card_vs_cpu(dev, seed, cfg, raw, fmt="hif4", batch_rows=None,
         leaves = tree_flatten(p)
         for x in leaves:
             x.requires_grad_(True)
-        loss = lm.train_loss(p, {"tokens": batch["tokens"].to(d)}, cfg,
+        loss = lm.train_loss(p, {k: v.to(d) for k, v in batch.items()}, cfg,
                              _train_ctx(fmt))
         grads = _grads(loss, leaves)
         state = adamw_init(p)
@@ -4282,45 +4470,50 @@ def train_card_vs_cpu(dev, seed, cfg, raw, fmt="hif4", batch_rows=None,
                      [x.cpu() for x in tree_flatten(state["m"])],
                      [x.detach().float().cpu() - o
                       for x, o in zip(leaves, old)])
-        print(f"  {fmt}, {name}: loss {float(loss.detach()):.6f} "
+        print(f"  {label}, {name}: loss {float(loss.detach()):.6f} "
               f"({time.perf_counter() - t0:.1f} s)")
     (lk, *card), (lc, *cpu) = out["card"], out["cpu"]
     names = [".".join(k) for k, _, _ in tree_leaves(raw)]
-    tol = TRAIN_CUT_TOL
-    worst = {}
-    print(f"  {fmt}, card vs cpu: loss rel {abs(lk - lc) / abs(lc):.3g} "
+    tol = tol or TRAIN_CUT_TOL
+    worst = {"loss_rtol": ("loss", abs(lk - lc) / abs(lc))}
+    print(f"  {label}, card vs cpu: loss rel {worst['loss_rtol'][1]:.3g} "
           f"(limit {tol['loss_rtol']})" + ("" if bounded else "; not bounded"))
     for what, a, b in zip(("grad_rel", "m_rel", "dp_rel"), card, cpu):
         rel = _rel_by_leaf(names, a, b, dev)
         w = max(rel, key=rel.get)
         worst[what] = (w, rel[w])
-        print(f"  {fmt}, card vs cpu, {what[:-4]} by leaf: worst {w} "
+        print(f"  {label}, card vs cpu, {what[:-4]} by leaf: worst {w} "
               f"{rel[w]:.3g} (limit {tol[what]}); "
               + ", ".join(f"{n} {r:.2g}" for n, r in rel.items()))
-    if not bounded:
-        return
-    check(abs(lk - lc) <= tol["loss_rtol"] * abs(lc), "loss card vs cpu")
-    for what, (w, r) in worst.items():
-        check(r <= tol[what], f"{what[:-4]} of {w} card vs cpu: {r}")
+    if bounded:
+        for what, (w, r) in worst.items():
+            check(r <= tol[what], f"{label}: {what[:-4]} of {w} card vs cpu: "
+                  f"{r} beyond {tol[what]}")
+    return worst
 
 
 class _Killed(Exception):
     pass
 
 
-def train_kill_and_resume(dev, seed, cfg, raw) -> None:
+def train_kill_and_resume(dev, seed, cfg, raw, label="") -> None:
     """(d) The cut's run killed after step KILL_AT + 1 (checkpoint at
-    KILL_AT), resumed from its directory: the resumed steps' losses equal
-    the uninterrupted run's bitwise."""
+    KILL_AT), resumed from its directory: the resumed steps' losses and the
+    final params equal the uninterrupted run's bitwise. Beside it, the
+    deterministic-algorithms warnings the uninterrupted run raised (an op
+    with no deterministic CUDA implementation)."""
     import shutil
+    import warnings
 
+    import torch
     from repro_torch.checkpoint import latest_step
+    from repro_torch.checkpoint.checkpoint import tree_flatten
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.train_loop import TrainLoopConfig, train
 
     t = TRAIN
     opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=t["resume_steps"])
-    ckpt = TRAIN_OUT / "resume"
+    ckpt = TRAIN_OUT / ("resume" + (f"-{label}" if label else ""))
     shutil.rmtree(ckpt, ignore_errors=True)
 
     def run(steps, directory=None, on_step=None, fresh=True):
@@ -4329,10 +4522,18 @@ def train_kill_and_resume(dev, seed, cfg, raw) -> None:
                                checkpoint_every=t["kill_at"], seed=seed)
         params = (_map_tensors(raw, lambda x: x.detach().clone())
                   if fresh else None)
-        return train(cfg, _train_ctx(), loop, opt, on_step, device=dev,
-                     params=params)[2]
+        p, _, hist = train(cfg, _train_ctx(), loop, opt, on_step, device=dev,
+                           params=params)
+        return hist, [_bits(x.detach()) for x in tree_flatten(p)]
 
-    full = run(t["resume_steps"])
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        full, p_full = run(t["resume_steps"])
+    nondet = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                     if "deterministic" in str(w.message)})
 
     def kill(step, _):
         if step == t["kill_at"]:
@@ -4347,24 +4548,25 @@ def train_kill_and_resume(dev, seed, cfg, raw) -> None:
     while latest_step(str(ckpt)) != t["kill_at"] and time.perf_counter() < deadline:
         time.sleep(0.5)
     check(latest_step(str(ckpt)) == t["kill_at"], "no checkpoint at the kill")
-    resumed = run(t["resume_steps"], str(ckpt), fresh=False)
+    resumed, p_res = run(t["resume_steps"], str(ckpt), fresh=False)
     want = full["loss"][t["kill_at"]:]
-    print(f"  uninterrupted losses {full['loss']}; killed after step "
-          f"{t['kill_at'] + 1} (checkpoint at {t['kill_at']}), resumed "
-          f"{resumed['loss']}: equal {resumed['loss'] == want}")
-    check(resumed["loss"] == want, "the resumed losses differ from the "
-          "uninterrupted run's")
+    same = equal(p_res, p_full)
+    print(f"  {label or cfg.name}: uninterrupted losses {full['loss']}; killed "
+          f"after step {t['kill_at'] + 1} (checkpoint at {t['kill_at']}), "
+          f"resumed {resumed['loss']}: losses equal {resumed['loss'] == want}, "
+          f"final params bitwise {same}; deterministic-algorithms warnings: "
+          f"{nondet or 'none'}")
+    check(resumed["loss"] == want and same, f"{label or cfg.name}: the resumed "
+          f"run differs from the uninterrupted one")
     shutil.rmtree(ckpt, ignore_errors=True)
 
 
 def train_trained_model(dev, seed, cfg, raw) -> None:
-    """(e) The cut trained TRAINED_STEPS steps through phase e2e's
-    comparison (card / card plain / cpu; shares printed, not bounded;
-    bitwise card vs card plain; tokens checked), and the share card vs
-    cpu of the same cut untrained (prefill logits alone) on the same
-    synthetic prompts, so the two differ by the training alone, and on
-    phase e2e's uniform prompts, so the untrained cut and phase e2e's
-    weights differ by their draw alone."""
+    """(e) The share of prefill logits outside rtol=0.05, atol=0.1 card vs
+    cpu (printed, not bounded) of the cut untrained and trained
+    TRAINED_STEPS steps, on the same synthetic prompts, so the two differ by
+    the training alone (phase e2e serves and checks the tokens and the
+    bitwise card-plain run on its own weights)."""
     import torch
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.runtime.train_loop import TrainLoopConfig, train
@@ -4376,9 +4578,6 @@ def train_trained_model(dev, seed, cfg, raw) -> None:
     untrained_cpu = _map_tensors(raw, lambda x: x.detach().cpu())
     print("  the untrained cut, prefill logits on the synthetic prompts:")
     untrained = e2e_prefill_shares(dev, cfg, untrained_cpu, prompts)
-    print("  the untrained cut, prefill logits on phase e2e's prompts:")
-    uniform = e2e_prefill_shares(dev, cfg, untrained_cpu,
-                                 e2e_prompts(cfg, seed))
     del untrained_cpu
     print(f"  the untrained cut compared in {time.perf_counter() - t0:.1f} s")
     steps = t["trained_steps"]
@@ -4397,26 +4596,159 @@ def train_trained_model(dev, seed, cfg, raw) -> None:
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    print("  the trained cut:")
-    shares = e2e_compare(dev, cfg, trained, prompts, None)
+    print("  the trained cut, prefill logits on the synthetic prompts:")
+    shares = e2e_prefill_shares(dev, cfg, trained, prompts)
     print(f"  the trained cut compared in {time.perf_counter() - t0:.1f} s")
     for policy, share in shares.items():
         init = E2E_INIT_SHARES.get(policy)
         print(f"  {policy}: {100 * share:.3f}% of prefill logits outside "
               f"rtol=0.05, atol=0.1 card vs cpu on the trained cut, "
               f"{100 * untrained[policy]:.3f}% on the same cut untrained "
-              f"(the same prompts), {100 * uniform[policy]:.3f}% untrained "
-              f"on phase e2e's uniform prompts; phase e2e's init-scale "
-              f"weights on those prompts: "
+              f"(the same prompts); phase e2e's init-scale weights on its "
+              f"own prompts: "
               + (f"{100 * init:.3f}%" if init is not None
                  else "not run in this call"))
+
+
+# (f) the five non-dense families: the card-vs-CPU step on a full-width cut
+# of 2 layers (whisper 2 encoder and 2 decoder layers; zamba2 2 Mamba layers
+# and one call of its shared block after them),
+# tokens of the synthetic stream, whisper's seeded f32 frames; the launcher
+# at (arch, layers, steps); kill and resume on the same cuts; llava-next-34b
+# trained on its 2-layer full-width cut for time and memory, its card-vs-CPU
+# step at the reduced config (the full-width cut's step is ~6 TFLOP, minutes
+# on the CPU)
+TRAIN_FAMILIES = {
+    "cut": (("granite-moe-1b-a400m", 2), ("mamba2-1.3b", 2), ("zamba2-2.7b", 2),
+            ("whisper-tiny", 2)),
+    "rows": 1, "frames": 256,
+    "launcher": (("granite-moe-1b-a400m", 6, 4), ("mamba2-1.3b", 16, 4),
+                 ("zamba2-2.7b", 12, 4)),
+    "resume": ("granite-moe-1b-a400m", "mamba2-1.3b", "zamba2-2.7b"),
+    "vlm": "llava-next-34b", "vlm_steps": 4}
+# (f)'s card-vs-CPU limits where TRAIN_CUT_TOL does not hold: zamba2, whose
+# HiF4 fake quantization amplifies the card/CPU float differences. Measured
+# (NVIDIA H100 80GB HBM3, 700 W; one row): the 2-layer cut's loss 7.0e-4,
+# gradients and first moments 0.10-0.13 by leaf, changes 0.30-0.41; on a
+# 6-layer cut 0.24-0.40 and 0.54-0.67, the same step unquantized 0.035 and
+# 0.22. Gradient limits 1.5x the 2-layer reading, the change's as
+# TRAIN_CUT_TOL (the other families hold TRAIN_CUT_TOL: gradients <= 0.07,
+# changes <= 0.31)
+TRAIN_FAMILY_TOL = {"zamba2-2.7b": {"loss_rtol": 1e-3, "grad_rel": 0.2,
+                                    "m_rel": 0.2, "dp_rel": 0.75}}
+
+
+def _family_cut(arch, layers, seed, dev):
+    """``arch`` at full width on its first ``layers`` layers (and as many
+    encoder layers; the hybrid's shared block called once, after them),
+    weights drawn on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    cfg = get_arch(arch)
+    cfg = dataclasses.replace(cfg, n_layers=layers, **(
+        {"enc_layers": layers} if cfg.enc_layers else {}), **(
+        {"hybrid_attn_every": layers} if cfg.hybrid_attn_every else {}))
+    return cfg, lm.init_params(cfg, seed + 6, device=dev, draw_on_device=True)
+
+
+def _family_batch(cfg, rows, seed) -> dict:
+    """One training batch on the host, as tests/test_torch_train_families.py
+    makes it: the synthetic stream's tokens; with seeded f32 frames (audio),
+    or seeded f32 embeds and the tokens as labels (vlm)."""
+    import torch
+    from repro_torch.data import SyntheticLMDataset
+
+    toks = SyntheticLMDataset(cfg.vocab, TRAIN["seq"], rows,
+                              seed=seed).batch_at(0)["tokens"]
+    gen = torch.Generator().manual_seed(seed + 7)
+    if cfg.family == "audio":
+        return {"frames": torch.randn(rows, TRAIN_FAMILIES["frames"],
+                                      cfg.d_model, generator=gen),
+                "tokens": toks}
+    if cfg.embeds_input:
+        return {"embeds": 0.02 * torch.randn(rows, TRAIN["seq"], cfg.d_model,
+                                             generator=gen), "labels": toks}
+    return {"tokens": toks}
+
+
+def train_vlm(dev, seed) -> None:
+    """llava-next-34b: its 2-layer full-width cut trained a few steps on the
+    card (embeds and labels; median step ms, tokens/s, peak memory), and its
+    card-vs-CPU step at the reduced config."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    f = TRAIN_FAMILIES
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params = _family_cut(f["vlm"], 2, seed, dev)
+    step_fn = make_train_step(cfg, _train_ctx(), AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=f["vlm_steps"]))
+    opt = adamw_init(params)
+    losses, times = [], []
+    for i in range(f["vlm_steps"]):
+        batch = {k: v.to(dev) for k, v in _family_batch(
+            cfg, TRAIN["batch"], seed + i).items()}
+        t0 = time.perf_counter()
+        params, opt, stats = step_fn(params, opt, batch)
+        losses.append(stats["loss"].item())
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    med = statistics.median(times)
+    print(f"  {cfg.name} 2 of 60 layers, full width, batch {TRAIN['batch']} x "
+          f"{TRAIN['seq']} embeds: losses {[round(x, 4) for x in losses]}; "
+          f"median step {med * 1e3:.2f} ms, "
+          f"{TRAIN['batch'] * TRAIN['seq'] / med:.0f} tokens/s, peak memory "
+          f"{peak:.3f} GiB; {card_line()}")
+    check(all(math.isfinite(x) for x in losses), f"{cfg.name}: losses {losses}")
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    red = get_arch(f["vlm"]).reduced()
+    raw = lm.init_params(red, seed + 6, device=dev, draw_on_device=True)
+    train_card_vs_cpu(dev, seed, red, raw, batch=_family_batch(
+        red, f["rows"], seed), label=f"{red.name} (reduced)")
+
+
+def train_families(dev, seed) -> None:
+    """(f) The five non-dense families on the card (impl qdq, no kernel):
+    card vs CPU one step on each full-width cut, the launcher at depth,
+    kill and resume, and llava-next-34b (:func:`train_vlm`)."""
+    import torch
+
+    f = TRAIN_FAMILIES
+    for arch, layers in f["cut"]:
+        cfg, raw = _family_cut(arch, layers, seed, dev)
+        train_card_vs_cpu(dev, seed, cfg, raw, batch=_family_batch(
+            cfg, f["rows"], seed), tol=TRAIN_FAMILY_TOL.get(arch),
+            label=f"{arch} ({layers} layers)")
+        if arch in f["resume"]:
+            train_kill_and_resume(dev, seed, cfg, raw, label=arch)
+        del raw
+        torch.cuda.empty_cache()
+    for arch, layers, steps in f["launcher"]:
+        r = _launcher(["train", "--arch", arch, "--layers", str(layers),
+                       "--steps", str(steps), "--global-batch",
+                       str(TRAIN["batch"]), "--seq-len", str(TRAIN["seq"]),
+                       "--seed", str(seed), "--log-every", "1"])
+        check(len(r["losses"]) == steps, f"{arch}: {len(r['losses'])} losses")
+        print(f"  {arch} {layers} layers, full width: median step "
+              f"{r['median_ms']} ms, {r['tokens_s']} tokens/s, peak memory "
+              f"{r['peak']}; {card_line()}")
+        torch.cuda.empty_cache()
+    train_vlm(dev, seed)
 
 
 def phase_train(dev, seed):
     """Training on the card: (a) the flash backward, (b) the launcher at
     full width and depth, (c) card vs cpu on the 2-layer cut, (d) kill and
     resume, (e) the cut before and after training through phase e2e's
-    comparison."""
+    comparison, (f) the five non-dense families."""
     import torch
 
     t0 = time.perf_counter()
@@ -4441,6 +4773,8 @@ def phase_train(dev, seed):
     train_trained_model(dev, seed, cfg, raw)
     del raw
     torch.cuda.empty_cache()
+    part("(f) the non-dense families")
+    train_families(dev, seed)
     part("done")
 
 
@@ -4792,14 +5126,21 @@ def phase_dryrun(dev, seed, records):
 
 # run_scenarios' rounds: best of 3 interleaved chunks, then 3 x 3 A/B
 # rounds of the gate pair; paged cells max(2, 3 // 3) = 2 end-to-end rounds
+# the reference's ratio gate hif4_over_bf16_kv_decode (benchmarks/matrix.py
+# :119-120): the HiF4-KV step's rate at least 0.9x the bf16-KV one's
+# (printed, not asserted: a smoke run is no benchmark)
+HIF4_OVER_BF16_KV_LIMIT = 0.9
 SCENARIO = {"repeats": 3,
-            "gate_pairs": (("qwen-packed-hif4", "qwen-packed-hif4-guarded"),)}
+            "gate_pairs": (("qwen-packed-hif4", "qwen-packed-hif4-guarded"),
+                           ("qwen-packed-bf16", "qwen-packed-hif4"))}
 SCENARIO_HIF4 = ("kv:hif4", "kv:no-fallback", "attn:fused_decode_attention",
                  "matmul:fused")
 SCENARIO_PAGED = ("kv:hif4", "kv:no-fallback",
                   "attn:fused_paged_decode_attention", "matmul:fused")
-# qwen1.5-0.5b's decode step: 24 layers of kernel 3, 24 x 7 packed linears
-QWEN_DECODE = {"fused_decode_attention": 24, "fused_decode_matmul": 24 * 7}
+# qwen1.5-0.5b's decode step: 24 layers of kernel 3 and of the KV append,
+# 24 x 7 packed linears
+QWEN_DECODE = {"fused_decode_attention": 24, "fused_decode_matmul": 24 * 7,
+               "kv_append": 24}
 
 
 def scenario_cells():
@@ -4980,6 +5321,15 @@ def phase_scenario(dev, seed, records):
         else:
             check(k3n == k4n == 0, f"{scn.name}: probe says {attn['route']}; "
                   f"launched {got}")
+        # one append a layer a decode step on a HiF4 cache, beside each
+        # kernel 4 call, or each self-attention call of kernel 3 (whisper's
+        # decoder also reads its cross cache through kernel 3, which appends
+        # nothing); none on a bf16 cache
+        appends = k4n + (k3n // 2 if r["family"] == "audio" else k3n)
+        check(got["kv_append"] == appends and (appends > 0) == (
+            r["kv_format_resolved"] == "hif4"),
+              f"{scn.name}: {got['kv_append']} KV appends, kernels 3 / 4 "
+              f"launched {k3n} / {k4n} on a {r['kv_format_resolved']} cache")
         if matmul["route"] == "fused":
             check(got["fused_decode_matmul"] > 0,
                   f"{scn.name}: probe says fused; kernel 2's decode form never "
@@ -4990,7 +5340,7 @@ def phase_scenario(dev, seed, records):
         if scn.arch == "qwen1.5-0.5b" and not scn.paged and scn.impl == "packed":
             want = {k: n * scn.new_tokens for k, n in QWEN_DECODE.items()}
             if scn.kv_format != "hif4":
-                want["fused_decode_attention"] = 0
+                want["fused_decode_attention"] = want["kv_append"] = 0
             check(all({k: c[k] for k in want} == want for c in calls),
                   f"{scn.name}: a chunk's launches differ from {want}: "
                   f"{[{k: c[k] for k in want} for c in calls]}")
@@ -5040,6 +5390,12 @@ def phase_scenario(dev, seed, records):
         if "recovery" in r:
             line["recovery"] = r["recovery"]
         print(f"  scenario {json.dumps(line)} {card}")
+    ab = recs["qwen-packed-hif4"]["gate_timing"]["qwen-packed-bf16"]
+    ratio = ab["baseline_ms"] / ab["subject_ms"]
+    print(f"  hif4_over_bf16_kv_decode (A/B): bf16 {ab['baseline_ms']} ms / "
+          f"HiF4 {ab['subject_ms']} ms = {ratio:.4f} (the reference's limit "
+          f"{HIF4_OVER_BF16_KV_LIMIT}: {'meets' if ratio >= HIF4_OVER_BF16_KV_LIMIT else 'below'}"
+          f"; printed, not asserted) {card}")
     rcv = recs["qwen-packed-hif4-recovery"]["recovery"]
     check(rcv["crashed"] and rcv["bitwise"], f"recovery cell: {rcv}")
 
@@ -5084,7 +5440,8 @@ def main(argv=None) -> int:
                                    check_attention(dev, records),
                                    check_paged_attention(dev, records),
                                    check_bfp_matmul(dev, records),
-                                   check_head_matmul(dev, records))),
+                                   check_head_matmul(dev, records),
+                                   check_kv_append(dev, records))),
               ("serve", lambda: phase_serve(dev, args.seed, records)),
               ("pallas", lambda: phase_pallas(dev, args.seed, records)),
               ("e2e", lambda: phase_e2e(dev, args.seed)),
@@ -5119,7 +5476,7 @@ def main(argv=None) -> int:
         return 1
     names = ["hif4_quantize", "fused_packed_matmul", "fused_decode_matmul",
              "fused_decode_attention", "fused_paged_decode_attention",
-             "bfp_matmul_quantized", "bfp_decode_matmul"]
+             "bfp_matmul_quantized", "bfp_decode_matmul", "kv_append"]
     print(f"kernels: {json.dumps(names)}")
     if not only:
         print(json.dumps({"kernels": [dict(records[n], kernel_ms=records[n]["ms"])

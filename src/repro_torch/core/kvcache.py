@@ -18,9 +18,14 @@ Meta words are int32 tensors holding the uint32 bits (see
 re-quantizes nothing and bulk packing equals token-at-a-time appends.
 
 Unlike the reference's pure functions, :func:`append_token`,
-:func:`append_token_paged`, :func:`scatter_pages` and :func:`copy_page`
-write into the cache or pool tensors IN PLACE (and return the same dict):
-the decode loop and the scheduler then never copy the cache or the pool.
+:func:`append_token_paged`, :func:`append_kv`, :func:`scatter_pages` and
+:func:`copy_page` write into the cache or pool tensors IN PLACE (and return
+the same dict): the decode loop and the scheduler then never copy the cache
+or the pool. The appends take the CUDA kernel
+(:func:`repro_torch.kernels.kv_append.kv_append`, K and V of a layer in one
+launch) on CUDA tensors and their plain versions
+(:func:`append_token_plain`, :func:`append_token_paged_plain`) on CPU
+tensors.
 
 The paged pool (docs/FORMATS.md "Paged KV-cache pool") keeps the
 kernel-tile layout with a leading page axis, leaves (L, NP, F, P), page 0
@@ -39,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import hif4
+from repro_torch.kernels.kv_append import kv_append
 
 KV_FORMATS = ("bf16", "hif4")
 
@@ -188,15 +194,61 @@ def slot_positions(pos: Union[int, torch.Tensor], batch: int,
     return torch.full((batch,), int(pos), dtype=torch.long, device=device)
 
 
+def _append(caches: list, news: list, pos, pages=None) -> None:
+    """The dispatch of the appends: CPU tensors take the plain versions (one
+    tensor at a time), anything else the CUDA kernel, all ``news`` in one
+    launch (which raises on a device mix, a dtype or a shape it does not
+    take)."""
+    on_cpu = all(t.device.type == "cpu" for t in news) and all(
+        a.device.type == "cpu" for pk in caches for a in pk.values())
+    if on_cpu:
+        kv_append_plain(caches, news, pos, pages)
+        return
+    dev = news[0].device
+    posv = slot_positions(pos, news[0].shape[0], dev)
+    kv_append(caches, news, posv, pages)
+
+
+def kv_append_plain(caches: list, news: list, pos, pages=None) -> None:
+    """The plain versions of :func:`repro_torch.kernels.kv_append.kv_append`
+    (the same arguments; ``pos`` may be an int): each new token through
+    :func:`append_token_plain`, or :func:`append_token_paged_plain` with
+    ``pages``."""
+    for pk, new in zip(caches, news):
+        if pages is None:
+            append_token_plain(pk, new, pos)
+        else:
+            append_token_paged_plain(pk, new, pos, pages)
+
+
+def append_kv(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor, pos,
+              pages: Optional[torch.Tensor] = None) -> dict:
+    """A decode step's append of one layer: k_new and v_new (B, 1, Hkv, Dh)
+    into the packed cache {"k", "v"} (contiguous, or with ``pages`` the
+    per-layer pool view), in place, ONE kernel launch on the card.
+    Positions as :func:`append_token` / :func:`append_token_paged`."""
+    _append([cache["k"], cache["v"]], [k_new, v_new], pos, pages)
+    return cache
+
+
 def append_token(pcache: dict, kv_new: torch.Tensor,
                  pos: Union[int, torch.Tensor]) -> dict:
     """Quantize kv_new (B, 1, Hkv, Dh) and write it at sequence slot ``pos``,
-    in place, in the cache's own layout.
+    in place, in the cache's own layout (the kernel on CUDA tensors, the
+    plain version on CPU tensors).
 
     ``pos`` is a scalar (whole batch in lockstep) or (B,) per-slot offsets,
     clamped to S - 1. Cache leaves are (B, S, ...) artifact or (B, ..., S)
     kernel-tile; only the G + tail bytes of the one token are written.
     """
+    _append([pcache], [kv_new], pos)
+    return pcache
+
+
+def append_token_plain(pcache: dict, kv_new: torch.Tensor,
+                       pos: Union[int, torch.Tensor]) -> dict:
+    """The plain version of :func:`append_token` (the reference's
+    ``append_token`` op by op)."""
     b = kv_new.shape[0]
     new = quantize_kv(kv_new)
     dev = pcache["meta"].device
@@ -310,7 +362,18 @@ def copy_page(pool_t: dict, src: int, dst: int) -> dict:
 def append_token_paged(pool_t: dict, kv_new: torch.Tensor, pos: torch.Tensor,
                        pages: torch.Tensor) -> dict:
     """Quantize kv_new (B, 1, Hkv, Dh) and write one token column through
-    the page table, in place.
+    the page table, in place: the kernel on CUDA tensors (page ids read on
+    the device, unchecked), the plain version
+    (:func:`append_token_paged_plain`) on CPU tensors."""
+    _append([pool_t], [kv_new], pos, pages)
+    return pool_t
+
+
+def append_token_paged_plain(pool_t: dict, kv_new: torch.Tensor,
+                             pos: torch.Tensor, pages: torch.Tensor) -> dict:
+    """The plain version of :func:`append_token_paged`: quantize kv_new
+    (B, 1, Hkv, Dh) and write one token column through the page table, in
+    place.
 
     ``pool_t`` is the PER-LAYER pool view (NP, F, P); ``pages`` (B,
     max_pages) maps each slot's logical page index to a pool page id;

@@ -120,8 +120,9 @@ __device__ __forceinline__ uint32_t absorb(float v, float rec,
 }
 
 // Algorithm 1 in three pieces, composed by hif4_quantize_group (kernel 1,
-// the prologue of kernel 2's decode form) and hif4_quantize_pass4 (the
-// loader of kernel 5's decode form), so none of them can drift apart. Every
+// the prologue of kernel 2's decode form), hif4_quantize_pass4 (the
+// loader of kernel 5's decode form) and, with the packing epilogue below,
+// the per-token KV append, so none of them can drift apart. Every
 // bf16 step of the reference is an explicit __float2bfloat16_rn, the
 // reciprocal correctly rounded (__frcp_rn, as 1.0f / x), rounding rintf
 // (half to even), and the micro-exponent scales exact powers of two.
@@ -153,18 +154,37 @@ __device__ __forceinline__ void hif4_group_scale(float vmax, float& e6m2,
   rec = rbf(__frcp_rn(e6m2));
 }
 
-// Stage 2, the lane's part (lines 11-14), and stage 3 (lines 15-18): the
-// micro-exponents of the lane's blocks, then its 8 absorbed ints packed
-// little-endian (element 0 in the low byte).
+// Stage 2, the lane's part (lines 11-14): the micro-exponent bits of the
+// lane's E1_8 block and of its two E1_16 blocks (elements 0-3, 4-7).
+struct Hif4Shifts {
+  int e1_8, e1_16a, e1_16b;
+};
+
+__device__ __forceinline__ Hif4Shifts hif4_block_shifts(const Hif4Max& m,
+                                                        float rec) {
+  Hif4Shifts s;
+  s.e1_8 = rbf(m.v8 * rec) > 4.0f ? 1 : 0;
+  const float half = s.e1_8 ? 0.5f : 1.0f;
+  s.e1_16a = rbf(m.v16a * rec) * half >= 2.0f ? 1 : 0;
+  s.e1_16b = rbf(m.v16b * rec) * half >= 2.0f ? 1 : 0;
+  return s;
+}
+
+// 4 * 2^-shift for a shift of 0, 1 or 2: element quarters at that shift
+__device__ __forceinline__ float hif4_shift_scale4(int shift) {
+  return shift == 0 ? 4.0f : (shift == 1 ? 2.0f : 1.0f);
+}
+
+// Stage 2's lane part, then stage 3 (lines 15-18): the lane's 8 absorbed
+// ints packed little-endian (element 0 in the low byte).
 __device__ __forceinline__ uint2 hif4_absorb_block(const float (&v)[8],
                                                    const Hif4Max& m,
                                                    float rec) {
-  const int e1_8 = rbf(m.v8 * rec) > 4.0f ? 1 : 0;
-  const float half = e1_8 ? 0.5f : 1.0f;
-  const int sa = e1_8 + (rbf(m.v16a * rec) * half >= 2.0f ? 1 : 0);
-  const int sb = e1_8 + (rbf(m.v16b * rec) * half >= 2.0f ? 1 : 0);
-  const float ka = sa == 0 ? 4.0f : (sa == 1 ? 2.0f : 1.0f);
-  const float kb = sb == 0 ? 4.0f : (sb == 1 ? 2.0f : 1.0f);
+  const Hif4Shifts s = hif4_block_shifts(m, rec);
+  const int sa = s.e1_8 + s.e1_16a;
+  const int sb = s.e1_8 + s.e1_16b;
+  const float ka = hif4_shift_scale4(sa);
+  const float kb = hif4_shift_scale4(sb);
   uint2 out;
   out.x = absorb(v[0], rec, ka, sa) | absorb(v[1], rec, ka, sa) << 8 |
           absorb(v[2], rec, ka, sa) << 16 | absorb(v[3], rec, ka, sa) << 24;
@@ -184,6 +204,72 @@ __device__ __forceinline__ uint2 hif4_quantize_group(const float (&v)[8],
   hif4_group_scale(m.vmax, e6m2, rec);
   scale = e6m2 * 0.25f;
   return hif4_absorb_block(v, m, rec);
+}
+
+// ---------------------------------------------------------------------------
+// The packing epilogue (core/hif4.py::pack_groups): the stored form of a
+// group instead of its absorbed ints, for the per-token KV append
+// (kv_append.cu). It takes stage 1's max and stage 2's scale of the same
+// pieces, so the append and kernels 1, 2 and 5 quantize alike.
+// ---------------------------------------------------------------------------
+
+// encode_s1p2 of one element of stage 3: sign << 3 | quarters, a -0 keeping
+// its sign bit. |rint(t * 4 * 2^-shift)| is the magnitude the absorbed int
+// carries before its shift (rint is symmetric), clamped to 7.
+__device__ __forceinline__ uint32_t s1p2_nibble(float v, float rec,
+                                                float shift_scale4) {
+  const float t = rbf(v * rec);
+  const float q = fminf(rintf(fabsf(t) * shift_scale4), 7.0f);
+  return (signbit(t) ? 8u : 0u) | static_cast<uint32_t>(q);
+}
+
+// encode_e6m2 of a scale on the E6M2 grid (a normal float in [2^-48,
+// 1.5 * 2^15]): (exponent + 48) << 2 | the two mantissa bits. A group
+// holding a NaN has a NaN scale, which the plain version packs as frexp's
+// exponent 0 (so -1 + 48 = 47) with its NaN mantissa cast to 0: 0xBC.
+__device__ __forceinline__ uint32_t e6m2_code(float e6m2) {
+  const uint32_t b = __float_as_uint(e6m2);
+  const int e = static_cast<int>((b >> 23) & 0xFFu) - 127;
+  const uint32_t code = (static_cast<uint32_t>(e + 48) << 2) | ((b >> 21) & 3u);
+  return isnan(e6m2) ? 0xBCu : code;
+}
+
+// A lane's packed block and its group's meta word.
+struct Hif4PackedBlock {
+  uint32_t codes;  // the block's 8 S1P2 codes, element 2i in the low nibble
+                   // of byte i (bytes 4 * blk .. 4 * blk + 3 of the group)
+  uint32_t meta;   // E6M2 code << 24 | E1_8 bits << 16 | E1_16 bits, on
+                   // every lane of the group
+};
+
+// The lane holding block ``blk`` (0..7) of a 64-group, laid out as for
+// hif4_quantize_group; all 32 lanes of the warp call this together. A group
+// holding a NaN packs as the plain version packs it: every code 0, no
+// micro-exponent bit set (a NaN compares false), E6M2 code 0xBC.
+__device__ __forceinline__ Hif4PackedBlock hif4_pack_block(const float (&v)[8],
+                                                           const Hif4Max& m,
+                                                           float e6m2,
+                                                           float rec,
+                                                           int blk) {
+  const Hif4Shifts s = hif4_block_shifts(m, rec);
+  const float ka = hif4_shift_scale4(s.e1_8 + s.e1_16a);
+  const float kb = hif4_shift_scale4(s.e1_8 + s.e1_16b);
+  uint32_t codes = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    codes |= s1p2_nibble(v[i], rec, ka) << (4 * i);
+    codes |= s1p2_nibble(v[4 + i], rec, kb) << (4 * (4 + i));
+  }
+  uint32_t bits = (static_cast<uint32_t>(s.e1_8) << (16 + blk)) |
+                  (static_cast<uint32_t>(s.e1_16a) << (2 * blk)) |
+                  (static_cast<uint32_t>(s.e1_16b) << (2 * blk + 1));
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1)
+    bits |= __shfl_xor_sync(HIF4_FULL_MASK, bits, o);
+  Hif4PackedBlock out;
+  out.codes = isnan(m.vmax) ? 0u : codes;
+  out.meta = (e6m2_code(e6m2) << 24) | bits;
+  return out;
 }
 
 // Four passes of hif4_quantize_group at once (pass p: lane 8 * slot + blk

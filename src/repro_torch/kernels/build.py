@@ -18,8 +18,9 @@ loaded. Nothing here runs at import time.
 Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel launch
 and nowhere else), so a run can show that its main path went through the
 kernels; the matmul wrappers also count them per (M, K, N) in
-:data:`SHAPE_LAUNCHES`, and the quantizer per (M, K), so a run can show
-which shapes its main path gave them.
+:data:`SHAPE_LAUNCHES`, the quantizer per (M, K) and the KV append per
+(B, Hkv, Dh, tensors, paged), so a run can show which shapes its main path
+gave them.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("hif4_quant", "fused_matmul", "fused_decode_matmul",
-           "fused_attention", "bfp_matmul", "bfp_decode_matmul")
+           "fused_attention", "bfp_matmul", "bfp_decode_matmul", "kv_append")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -45,7 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict = {"hif4_quantize": 0, "fused_packed_matmul": 0,
                   "fused_decode_matmul": 0, "fused_decode_attention": 0,
                   "fused_paged_decode_attention": 0, "bfp_matmul_quantized": 0,
-                  "bfp_decode_matmul": 0}
+                  "bfp_decode_matmul": 0, "kv_append": 0}
 
 # (kernel, (M, K, N)) -> launches, where the wrapper names its shape
 SHAPE_LAUNCHES: dict = {}

@@ -4,8 +4,10 @@
     python -m repro_torch.launch.profile --kv-pages 65         # paged pool
     python -m repro_torch.launch.profile --arch granite-moe-1b-a400m
     python -m repro_torch.launch.profile --arch mamba2-1.3b    # prompt 512
+    python -m repro_torch.launch.profile --kv-format bf16      # bf16 KV cache
 
-Builds the serving artifact (policy paper-iv, impl packed, HiF4 KV) from
+Builds the serving artifact (policy paper-iv, impl packed, ``--kv-format``
+KV cache, HiF4 by default) from
 random weights (``--seed``), prefills ``--batch`` x ``--prompt-len`` tokens
 (default 480; 512 for the ssm and hybrid families, whose SSD scan takes a
 prompt that is a multiple of its 256-token chunk), then times ``--steps``
@@ -13,7 +15,11 @@ decode steps with the host clock around work that ends in a device
 synchronize, and profiles two more with ``torch.profiler``
 (CPU + CUDA activities). Prints the step time, the device-busy share of the
 profiled window (the union of the device's activity intervals / wall time,
-:func:`device_activity`) and the top device kernels and host operators.
+:func:`device_activity`), the device ops and host kernel launches
+(``cudaLaunchKernel`` and its kin, :func:`host_launches`) per step, the
+share of those launches and of the host time that the KV append takes
+(each append call wrapped in a ``kv_append`` profiler range), and the top
+device kernels and host operators.
 With ``--kv-pages N`` the prefilled cache is cut into pages of 64 tokens
 and laid into a pool of N pages (one table row of distinct pages per slot,
 page 0 the scratch page), and the
@@ -27,6 +33,7 @@ not a device time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
@@ -35,7 +42,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core import engine, kvcache
 from repro_torch.core.policy import get_policy
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import lm, transformer
 from repro_torch.models.common import ModelCtx
 from repro_torch.runtime.serve_loop import (
     ServeConfig, build_decode_cache, prepare_params_for_serving, serving_ctx)
@@ -62,27 +69,83 @@ def paged_cache(cfg, cache: dict, batch: int, n_pages: int, P: int, dev) -> dict
     return {"kv": pool, "pages": table, "pos": pos}
 
 
+def union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def device_activity(events) -> tuple[float, list]:
     """Device busy ms of profiled ``events`` (``prof.events()``): the union
     of the device's own activity intervals (kernels, copies, sets), so a
     PyTorch operator and the kernels it launched are not counted twice, nor
     overlapping kernels; and (name, count, ms) per device activity name,
-    largest first."""
+    largest first. A ``record_function`` range's device-side twin (a user
+    annotation spanning the kernels inside it) is no activity of its own."""
     spans, per = [], {}
     for e in events:
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
         count, us = per.get(e.name, (0, 0.0))
         per[e.name] = (count + 1, us + end - start)
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
-    return busy_us / 1e3, sorted(((name, c, us / 1e3) for name, (c, us)
+    return union_us(spans) / 1e3, sorted(((name, c, us / 1e3) for name, (c, us)
                                   in per.items()), key=lambda x: -x[2])
+
+
+# the profiler's names of host calls that launch one device op each
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+                "cudaMemsetAsync", "cudaMemcpyAsync")
+# the KV-cache appends of a decode step (whichever the tree defines): the
+# HiF4 ones of kvcache, the bf16 one of the transformer
+APPEND_FNS = (("kvcache", "append_kv"), ("kvcache", "append_token"),
+              ("kvcache", "append_token_paged"), ("transformer", "_append_kv"))
+
+
+def host_launches(events, ranges=()) -> tuple[int, int]:
+    """(all, inside) host calls of ``events`` that launch a device op
+    (:data:`LAUNCH_CALLS`); ``inside`` counts those that start within one
+    of ``ranges`` ((start, end) pairs on the host clock)."""
+    n = inside = 0
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA or \
+                e.name not in LAUNCH_CALLS:
+            continue
+        n += 1
+        t = e.time_range.start
+        inside += any(a <= t <= b for a, b in ranges)
+    return n, inside
+
+
+@contextlib.contextmanager
+def labelled_appends(label: str = "kv_append"):
+    """Wrap each KV append function (:data:`APPEND_FNS`) in a profiler range
+    named ``label`` while the block runs (the transformer reaches them
+    through their module's globals, so the wrap is seen)."""
+    modules = {"kvcache": kvcache, "transformer": transformer}
+    saved = {(modules[m], name): getattr(modules[m], name)
+             for m, name in APPEND_FNS if hasattr(modules[m], name)}
+
+    def wrap(fn):
+        def labelled(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return labelled
+
+    for (module, name), fn in saved.items():
+        setattr(module, name, wrap(fn))
+    try:
+        yield
+    finally:
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
 
 
 def main(argv=None) -> int:
@@ -98,7 +161,11 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-pages", type=int, default=0,
                     help="> 0: decode through a page pool of this many pages "
                          f"of {kvcache.DEFAULT_PAGE_TOKENS} tokens")
+    ap.add_argument("--kv-format", choices=kvcache.KV_FORMATS, default="hif4",
+                    help="the decode KV cache: HiF4-packed (default) or bf16")
     args = ap.parse_args(argv)
+    if args.kv_pages and args.kv_format != "hif4":
+        ap.error("--kv-pages: the page pool is HiF4-only")
     dev = resolve_device("cuda")
     cfg = get_arch(args.arch)
     if args.prompt_len is None:
@@ -107,7 +174,7 @@ def main(argv=None) -> int:
         ap.error(f"--kv-pages: the page pool serves the transformer families' "
                  f"KV cache, not {cfg.family!r}")
     plan = lm.quant_plan(cfg, get_policy("paper-iv", impl="packed",
-                                         kv=kvcache.KV_HIF4))
+                                         kv=kvcache.KVCacheConfig(args.kv_format)))
     ctx = ModelCtx(plan=plan)
     sctx = serving_ctx(ctx)
     params = prepare_params_for_serving(
@@ -137,13 +204,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     kv = (f"paged pool {args.kv_pages} x {P} tokens" if args.kv_pages
-          else "contiguous cache")
+          else f"contiguous {args.kv_format} KV cache")
     print(f"{torch.cuda.get_device_name(0)}: {cfg.name} batch {args.batch} "
           f"prompt {args.prompt_len}, {kv}: decode {step_ms:.2f} ms/step "
           f"({args.batch * 1e3 / step_ms:.1f} tokens/s)")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof, labelled_appends():
         t0 = time.perf_counter()
         for _ in range(2):
             token, cache = step(token, cache)
@@ -156,6 +223,16 @@ def main(argv=None) -> int:
           f"{busy_ms / 2:.2f} ms/step ({100 * busy_ms * 1e3 / wall_us:.1f}% of "
           f"wall; idle {100 - 100 * busy_ms * 1e3 / wall_us:.1f}%), "
           f"{n_kernels / 2:.0f} device ops/step")
+    appends = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.name == "kv_append"
+               and e.device_type != torch.autograd.DeviceType.CUDA]
+    launched, in_append = host_launches(prof.events(), appends)
+    append_us = union_us(appends)
+    print(f"host launches {launched / 2:.0f}/step; KV append: {len(appends) / 2:.0f} "
+          f"calls/step, {in_append / 2:.0f} launches/step "
+          f"({100 * in_append / max(launched, 1):.1f}%), host "
+          f"{append_us / 2e3:.2f} ms/step ({100 * append_us / wall_us:.1f}% "
+          f"of wall)")
     print("top device time (per step):")
     for name, count, ms in kernels[:args.top]:
         print(f"  {ms / 2:9.3f} ms  {count / 2:6.0f}x  {name[:90]}")

@@ -4,19 +4,25 @@
         --steps 16 [--ckpt-dir ckpt]                                # on cuda
     PYTHONPATH=src python -m repro_torch train --arch qwen1.5-0.5b --reduced \\
         --device cpu --steps 10 --global-batch 4 --seq-len 32
+    PYTHONPATH=src python -m repro_torch train --arch mamba2-1.3b \
+        --layers 12 --steps 4                                 # a depth cut
 
 Trains on the synthetic affine stream (``repro_torch.data``) with AdamW
 from random weights made from ``--seed`` (drawn on the card on cuda), with
 ``--quant``'s fake quantization on every linear site of the default policy
 (impl qdq: no kernel of the port runs, as in the reference). Layer remat is
 on unless ``--reduced``; the attention chunks are min(512, S) queries and
-min(1024, S) keys. With ``--ckpt-dir`` the run resumes from the newest
+min(1024, S) keys. ``--layers N`` trains the first N layers of the config
+(a depth cut for time, at full width: the decoder's layers, or the hybrid's
+Mamba layers, its shared block called every ``hybrid_attn_every`` of
+them). With ``--ckpt-dir`` the run resumes from the newest
 checkpoint there and saves every 25 steps and at the end. Prints a loss
 line every ``--log-every`` steps, the final loss, and the median step
 time, tokens per second and (on cuda) the peak of
 ``torch.cuda.max_memory_allocated``.
 """
 import argparse
+import dataclasses
 import os
 import statistics
 import sys
@@ -33,6 +39,8 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train the first N layers only (a depth cut)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="where training runs (cuda, or cpu when asked)")
@@ -59,6 +67,12 @@ def main(argv=None) -> int:
         return 2
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.n_layers:
+            print(f"--layers {args.layers}: {cfg.name} has {cfg.n_layers}",
+                  file=sys.stderr)
+            return 2
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     ctx = ModelCtx(quant=QuantConfig(fmt=args.quant), remat=not args.reduced,
                    attn_q_chunk=min(512, args.seq_len),
                    attn_k_chunk=min(1024, args.seq_len))

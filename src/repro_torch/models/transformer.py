@@ -182,19 +182,15 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
             q = apply_rope(q, posv[:, None], cfg.attn.rope_theta)
             k_new = apply_rope(k_new, posv[:, None], cfg.attn.rope_theta)
         length = (posv + 1).to(torch.int32)
-        if pages is not None:
-            # paged HiF4 pool: the one token's bytes land at (pages[b,
-            # pos//P], pos % P); the scheduler gives live slots pages they
-            # own alone
-            if not packed:
-                raise ValueError("the page pool is HiF4-only")
-            kvcache.append_token_paged(cache["k"], k_new, posv, pages)
-            kvcache.append_token_paged(cache["v"], v_new, posv, pages)
-        elif packed:
-            # quantize the one new token into its own 64-groups + tail,
-            # write only those bytes; attention streams the packed cache
-            kvcache.append_token(cache["k"], k_new, posv)
-            kvcache.append_token(cache["v"], v_new, posv)
+        if pages is not None and not packed:
+            raise ValueError("the page pool is HiF4-only")
+        if packed:
+            # quantize the one new token of K and V into its own 64-groups
+            # + tail and write only those bytes (one kernel launch on the
+            # card), through the page table for the pool: (pages[b,
+            # pos//P], pos % P), the scheduler giving live slots pages they
+            # own alone; attention streams the packed cache
+            kvcache.append_kv(cache, k_new, v_new, posv, pages)
         else:
             _append_kv(cache["k"], k_new, posv)
             _append_kv(cache["v"], v_new, posv)

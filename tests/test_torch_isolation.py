@@ -76,12 +76,16 @@ TRAINING_MODULES = ("core/qlinear.py", "models/attention.py", "models/common.py"
 # the serve-cell harness's slice
 SCENARIO_MODULES = ("runtime/scenario.py", "models/attention.py",
                     "launch/dryrun.py")
+# the per-token KV append's slice
+KV_APPEND_MODULES = ("kernels/kv_append.py", "core/kvcache.py",
+                     "launch/profile.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 20
-    for rel in CALIBRATION_MODULES + TRAINING_MODULES + SCENARIO_MODULES:
+    for rel in (CALIBRATION_MODULES + TRAINING_MODULES + SCENARIO_MODULES
+                + KV_APPEND_MODULES):
         assert REPO / "src" / "repro_torch" / rel in files, rel
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imported_modules(f)
@@ -101,6 +105,7 @@ def test_port_imports_in_a_process_without_jax():
             "import repro_torch.optim.grad_compress, repro_torch.launch.steps\n"
             "import repro_torch.runtime.train_loop, repro_torch.launch.train\n"
             "import repro_torch.runtime.scenario\n"
+            "import repro_torch.kernels.kv_append, repro_torch.launch.profile\n"
             "import repro_torch.__main__\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"

@@ -263,9 +263,13 @@ def test_launch_counters_only_count_kernel_launches():
     TM.fused_packed_matmul(ai, asc, pw.codes, pw.meta)
     TM.fused_decode_matmul(x, pw.codes, pw.meta)
     TB.bfp_decode_matmul(ai, asc, torch.randn(32, 128).T)
+    pool = TK.init_page_pool(1, 2, 64, 2, 8)                  # (L, NP, F, P)
+    kv = torch.randn(1, 1, 2, 64)
+    TK.append_kv({t: {k: a[0, :1] for k, a in pool[t].items()}
+                  for t in ("k", "v")}, kv, kv, 3)          # contiguous (1, F, 8)
     assert build.LAUNCHES == {"hif4_quantize": 0, "fused_packed_matmul": 0,
                               "fused_decode_matmul": 0,
                               "fused_decode_attention": 0,
                               "fused_paged_decode_attention": 0,
                               "bfp_matmul_quantized": 0,
-                              "bfp_decode_matmul": 0}
+                              "bfp_decode_matmul": 0, "kv_append": 0}

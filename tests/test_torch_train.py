@@ -576,3 +576,24 @@ def test_launcher_refuses_cuda_without_a_card():
         pytest.skip("checks the behaviour without a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         front_door.main(["train", "--arch", ARCH, "--reduced", "--steps", "1"])
+
+
+def test_launcher_layers_cuts_the_depth(monkeypatch, capsys):
+    """``--layers N`` trains the config's first N layers at its width; a
+    depth beyond the config's is refused."""
+    from repro_torch.runtime import train_loop
+
+    seen = {}
+
+    def fake_train(cfg, ctx, loop, **kw):
+        seen["cfg"] = cfg
+        return None, None, {"loss": [1.0], "step_time": [0.1], "stragglers": []}
+
+    monkeypatch.setattr(train_loop, "train", fake_train)
+    args = ["train", "--arch", "zamba2-2.7b", "--reduced", "--device", "cpu",
+            "--steps", "1"]
+    assert front_door.main(args + ["--layers", "2"]) == 0
+    full = get_arch("zamba2-2.7b").reduced()
+    assert seen["cfg"].n_layers == 2 and seen["cfg"].d_model == full.d_model
+    assert front_door.main(args + ["--layers", str(full.n_layers + 1)]) == 2
+    assert "has" in capsys.readouterr().err
