@@ -73,7 +73,7 @@ Phases (any failure ends the run with a nonzero exit):
              vs CPU on the card's final hidden state. Greedy tokens must
              agree, or differ only where the reference's top-2 logit gap is
              within that tolerance.
-7. paged   — the paged path at full width on the first 8 of 24 layers
+7. paged   — the paged path at full width on the first 4 of 24 layers
              (a cut for time): 12 requests sharing a
              256-token prefix through 8 slots and a 24-page HiF4 pool
              (P=64, 32 new tokens, decode chunk 8), which shows shared-prefix
@@ -181,7 +181,7 @@ Phases (any failure ends the run with a nonzero exit):
              16 steps, weights drawn on the card from --seed), in-process:
              finite losses, the last 4 below the first 4, zero kernel
              launches, median step ms, tokens/s and peak memory; (c) a
-             2-layer full-width cut, one batch of (4, 128), one step on the
+             1-layer full-width cut, one batch of (4, 128), one step on the
              card and on the CPU: the loss, every leaf's gradient and the
              updated params within stated tolerances; (d) the cut's run
              killed after step 3 (checkpoint at 2, git-ignored .train/) and
@@ -191,10 +191,10 @@ Phases (any failure ends the run with a nonzero exit):
              loss curve, and the card-vs-CPU share of its prefill logits
              beside the untrained cut's (printed, not bounded); (f) the
              five non-dense families (TRAIN_FAMILIES): one step card vs CPU
-             of 2-layer full-width cuts of granite-moe-1b-a400m,
-             mamba2-1.3b, zamba2-2.7b (its shared block once, after them)
-             and whisper-tiny (seeded frames) within TRAIN_CUT_TOL (zamba2
-             within TRAIN_FAMILY_TOL); python
+             of full-width cuts of granite-moe-1b-a400m, mamba2-1.3b and
+             zamba2-2.7b (1 layer each, zamba2's shared block once, after
+             it) and whisper-tiny (2 + 2, seeded frames) within
+             TRAIN_CUT_TOL (zamba2 within TRAIN_FAMILY_TOL); python
              -m repro_torch train --layers N for granite, mamba2 and zamba2
              (median step ms, tokens/s, peak memory); their cuts killed and
              resumed bitwise, as (d); llava-next-34b's 2-layer full-width
@@ -243,6 +243,24 @@ Phases (any failure ends the run with a nonzero exit):
              versions; recovery bitwise; no decode step below its bytes
              over the card's memory rate. One JSON line per cell (decode
              and prefill ms, the four byte counts, that bound, its share).
+16. examples — the four examples (examples/torch_*.py) in process on the
+             card: the quickstart's tour (the fixed-point dot equal to the
+             dequantized one; its matmul, kernel 1 then kernel 5's decode
+             form at M = 32, one launch each, bitwise its plain versions on
+             the card and on the CPU, kernel 5's decode form timed at that
+             shape); the PTQ walkthrough (HiGPTQ below the direct cast, its
+             error card vs CPU within PTQ_CARD_REL); the serve example's
+             main at its defaults (reduced qwen1.5-0.5b trained 120 steps on
+             the card, 16 tokens: bf16 100.0%, every qdq row launching
+             nothing, every packed row kernel 1 and kernel 2 in both forms
+             at 0.5625 B/value, the HiF4-KV row kernel 3 and the KV append
+             once a layer a step, the cache's bytes a token equal to the
+             row's, each packed row's tokens against serve_table on the CPU
+             on the same card-trained params), then its main for reduced
+             qwen1.5-4b and phi3.5-moe-42b-a6.6b; the train example's two
+             runs (qwen3-4b reduced, 60 steps each, into a fresh
+             .train/examples/): falling losses, the step-50 checkpoint, no
+             kernel launch.
 
 The last lines are the kernel records as one JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. The script imports
@@ -2034,9 +2052,11 @@ def _check_head_on_one_hidden_state(cfg, params, ctx, tokens, dev):
     check(same, "the LM head differs between card and cpu on one hidden state")
 
 
-def _check_tokens(label, toks, ref_name, runs, cfg, params, ctx, prompts):
+def _check_tokens(label, toks, ref_name, runs, cfg, params, ctx, prompts,
+                  kv_format=None):
     """Greedy tokens must equal the reference run's; where one differs, the
-    reference's top-2 logit gap at that step must be within the tolerance."""
+    reference's top-2 logit gap at that step must be within the tolerance
+    (``kv_format``: the serve's, where it overrides the policy's)."""
     import torch
 
     ref = runs[ref_name][1]
@@ -2049,7 +2069,8 @@ def _check_tokens(label, toks, ref_name, runs, cfg, params, ctx, prompts):
         prompt = ({k: v[b:b + 1] for k, v in prompts.items()}
                   if isinstance(prompts, dict) else prompts[b:b + 1])
         top1, top2 = _top2(cfg, params, ctx, prompt, ref[b, :step],
-                           runs[ref_name][2], plain=ref_name == "card-plain")
+                           runs[ref_name][2], plain=ref_name == "card-plain",
+                           kv_format=kv_format)
         gap = top1 - top2
         print(f"  request {b}: first differing token at step {step}; "
               f"{ref_name} top-2 logit gap {gap:.4f}")
@@ -2057,7 +2078,8 @@ def _check_tokens(label, toks, ref_name, runs, cfg, params, ctx, prompts):
               f"{step} with a top-2 gap {gap} beyond the tolerance")
 
 
-def _top2(cfg, params, ctx, prompt, emitted, device, *, plain: bool):
+def _top2(cfg, params, ctx, prompt, emitted, device, *, plain: bool,
+          kv_format=None):
     """The top two logits of a run at the step after the tokens ``emitted``
     (token 0 comes from the prefill logits); ``prompt`` token ids (1, S) or
     a prefill batch dict of one row."""
@@ -2072,7 +2094,7 @@ def _top2(cfg, params, ctx, prompt, emitted, device, *, plain: bool):
         batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
         logits, cache = build_decode_cache(
             cfg, sp, {k: v.to(device) for k, v in batch.items()}, sctx,
-            ServeConfig(max_new_tokens=len(emitted) + 1))
+            ServeConfig(max_new_tokens=len(emitted) + 1, kv_format=kv_format))
         for tok in emitted:
             logits, cache = lm.decode_step(
                 sp, tok.reshape(1).to(device=device, dtype=torch.int32),
@@ -2094,10 +2116,10 @@ def _top2(cfg, params, ctx, prompt, emitted, device, *, plain: bool):
 PAGED = {"page_tokens": 64, "new_tokens": 32, "decode_chunk": 8, "slots": 8,
          "prefix": 256, "tails": (224, 96, 160, 32, 192, 128, 64, 208, 144, 48,
                                   176), "kv_pages": 24, "flash_chunk": 16,
-         # the first 8 of qwen1.5-0.5b's 24 layers: a cut for the script's
-         # time (12 until phase train's part (f) came; the scheduling
-         # depends on the prompts alone)
-         "layers": 8}
+         # the first 4 of qwen1.5-0.5b's 24 layers: a cut for the script's
+         # time (12 until phase train's part (f) came, 8 until phase examples
+         # came; the scheduling depends on the prompts alone)
+         "layers": 4}
 
 
 def paged_requests(vocab: int, seed: int, tails=PAGED["tails"]) -> list:
@@ -4216,13 +4238,14 @@ def phase_calibrate(dev, seed):
 # phase 13: training
 # ---------------------------------------------------------------------------
 
-# the full run (b) and the 2-layer full-width cut of (c)-(e); (d) kills the
+# the full run (b) and the 1-layer full-width cut of (c)-(e) (2 layers until
+# phase examples came: a cut for the script's time); (d) kills the
 # cut's run after step KILL_AT + 1 (its checkpoint at KILL_AT) and resumes;
 # (e) trains the cut TRAINED_STEPS steps, about 60 s on the card (353 and
 # 372 steps took 56.2 and 62.0 s; NVIDIA H100 80GB HBM3, 700 W), a fixed
 # count so the trained weights are the same in every run
 TRAIN = {"arch": "qwen1.5-0.5b", "steps": 16, "batch": 8, "seq": 128,
-         "cut_layers": 2, "cut_batch": 4, "resume_steps": 4, "kill_at": 2,
+         "cut_layers": 1, "cut_batch": 4, "resume_steps": 4, "kill_at": 2,
          "trained_steps": 120, "prompt": 64}
 TRAIN_OUT = ROOT / ".train"
 # (a) (B, S, H, D, chunk): the train shape and S 512 with 256-chunks
@@ -4231,8 +4254,8 @@ TRAIN_FLASH = ((8, 128, 16, 64, 128), (8, 512, 16, 64, 256))
 # of each leaf's difference its gradient, its first moment and its change
 # p_new - p_old. On AdamW's first step the change is about lr x sign(g),
 # so it differs where the gradient's sign does: a skipped update reads 1, a
-# flipped or doubled one 1 or more. Measured (NVIDIA H100 80GB HBM3, 700
-# W): loss 9.5e-5; gradients and first moments 0.027-0.041 (limit 2.4x the
+# flipped or doubled one 1 or more. Measured on the 2-layer cut (NVIDIA
+# H100 80GB HBM3, 700 W): loss 9.5e-5; gradients and first moments 0.027-0.041 (limit 2.4x the
 # worst); changes 0.17-0.25, 0.57 for the key bias, whose exact gradient
 # is 0 (limit 1.3x that)
 TRAIN_CUT_TOL = {"loss_rtol": 1e-3, "grad_rel": 0.1, "m_rel": 0.1,
@@ -4401,7 +4424,8 @@ def train_full(dev, seed):
 
 
 def _cut(seed, dev):
-    """The 2-layer full-width cut and its weights drawn on the card."""
+    """The full-width cut (``TRAIN["cut_layers"]``) and its weights drawn
+    on the card."""
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
 
@@ -4611,26 +4635,30 @@ def train_trained_model(dev, seed, cfg, raw) -> None:
 
 
 # (f) the five non-dense families: the card-vs-CPU step on a full-width cut
-# of 2 layers (whisper 2 encoder and 2 decoder layers; zamba2 2 Mamba layers
-# and one call of its shared block after them),
+# of (arch, layers): granite, mamba2 and zamba2 1 (zamba2's Mamba layer and
+# one call of its shared block after it), whisper 2 encoder and 2 decoder
+# layers (granite's, mamba2's and zamba2's CPU steps took 19.3, 9.4 and
+# 22.5 s at 2 layers, NVIDIA H100 80GB HBM3, 700 W: cut to 1 for the
+# script's time);
 # tokens of the synthetic stream, whisper's seeded f32 frames; the launcher
-# at (arch, layers, steps); kill and resume on the same cuts; llava-next-34b
+# at (arch, layers, steps), granite 6 -> 3, mamba2 16 -> 8 and zamba2 12 ->
+# 6 layers for time; kill and resume on the same cuts; llava-next-34b
 # trained on its 2-layer full-width cut for time and memory, its card-vs-CPU
 # step at the reduced config (the full-width cut's step is ~6 TFLOP, minutes
 # on the CPU)
 TRAIN_FAMILIES = {
-    "cut": (("granite-moe-1b-a400m", 2), ("mamba2-1.3b", 2), ("zamba2-2.7b", 2),
+    "cut": (("granite-moe-1b-a400m", 1), ("mamba2-1.3b", 1), ("zamba2-2.7b", 1),
             ("whisper-tiny", 2)),
     "rows": 1, "frames": 256,
-    "launcher": (("granite-moe-1b-a400m", 6, 4), ("mamba2-1.3b", 16, 4),
-                 ("zamba2-2.7b", 12, 4)),
+    "launcher": (("granite-moe-1b-a400m", 3, 4), ("mamba2-1.3b", 8, 4),
+                 ("zamba2-2.7b", 6, 4)),
     "resume": ("granite-moe-1b-a400m", "mamba2-1.3b", "zamba2-2.7b"),
     "vlm": "llava-next-34b", "vlm_steps": 4}
 # (f)'s card-vs-CPU limits where TRAIN_CUT_TOL does not hold: zamba2, whose
 # HiF4 fake quantization amplifies the card/CPU float differences. Measured
 # (NVIDIA H100 80GB HBM3, 700 W; one row): the 2-layer cut's loss 7.0e-4,
-# gradients and first moments 0.10-0.13 by leaf, changes 0.30-0.41; on a
-# 6-layer cut 0.24-0.40 and 0.54-0.67, the same step unquantized 0.035 and
+# gradients and first moments 0.10-0.13 by leaf, changes 0.30-0.41 (the
+# script now runs the 1-layer cut); on a 6-layer cut 0.24-0.40 and 0.54-0.67, the same step unquantized 0.035 and
 # 0.22. Gradient limits 1.5x the 2-layer reading, the change's as
 # TRAIN_CUT_TOL (the other families hold TRAIN_CUT_TOL: gradients <= 0.07,
 # changes <= 0.31)
@@ -4746,7 +4774,7 @@ def train_families(dev, seed) -> None:
 
 def phase_train(dev, seed):
     """Training on the card: (a) the flash backward, (b) the launcher at
-    full width and depth, (c) card vs cpu on the 2-layer cut, (d) kill and
+    full width and depth, (c) card vs cpu on the 1-layer cut, (d) kill and
     resume, (e) the cut before and after training through phase e2e's
     comparison, (f) the five non-dense families."""
     import torch
@@ -4761,7 +4789,7 @@ def phase_train(dev, seed):
     part("(b) python -m repro_torch train, full width and depth")
     train_full(dev, seed)
     cfg, raw = _cut(seed, dev)
-    part("(c) the 2-layer cut, one step, card vs cpu")
+    part("(c) the 1-layer cut, one step, card vs cpu")
     train_card_vs_cpu(dev, seed, cfg, raw)
     # what the HiF4 fake quantization adds to the card/CPU difference: the
     # same step unquantized, on one row of the batch (printed only)
@@ -5400,6 +5428,304 @@ def phase_scenario(dev, seed, records):
     check(rcv["crashed"] and rcv["bitwise"], f"recovery cell: {rcv}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the examples (examples/torch_*.py) on the card
+# ---------------------------------------------------------------------------
+
+# the serve example at its defaults (qwen1.5-0.5b, 120 steps, 16 tokens),
+# then the two archs no other phase serves, at (steps, new tokens); the
+# train example's steps (one checkpoint at step 50)
+EXAMPLES = {"serve_archs": (("qwen1.5-4b", 8, 4), ("phi3.5-moe-42b-a6.6b", 8, 4)),
+            "train_steps": 60}
+EXAMPLES_OUT = ROOT / ".train" / "examples"
+# the PTQ example's HiGPTQ layer-output error card vs CPU on the same
+# inputs, relative (the Hessian's matmuls and the per-row updates sum in
+# another order on the card). Measured 1.815e-3 with 99.725% of the HiGPTQ
+# weights equal (NVIDIA H100 80GB HBM3, 700.00 W); the limit is 2.75x that
+PTQ_CARD_REL = 5e-3
+
+
+def _example(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_quickstart(dev):
+    """The tour on the card: §3 equal, §4 (kernel 1 then kernel 5's decode
+    form at M = 32) bitwise its plain version on the card and on the CPU,
+    one launch of each, timed beside the plain version."""
+    import torch
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.bfp_matmul import (
+        bfp_decode_matmul, bfp_decode_matmul_plain)
+    from repro_torch.kernels.hif4_quant import hif4_quantize
+
+    mod = _example("torch_quickstart")
+    inputs = mod.draw_inputs()
+    build.reset_launches()
+    lines, v = mod.tour(inputs, dev)
+    torch.cuda.synchronize()
+    launches, shapes = dict(build.LAUNCHES), dict(build.SHAPE_LAUNCHES)
+    print("\n".join(f"  | {x}" for x in lines))
+    check(v["fixed_point"] == v["dequant"]
+          and any(x.endswith("equal: True") for x in lines),
+          f"the fixed-point dot {v['fixed_point']} != {v['dequant']}")
+    m, k, n = inputs["m"].shape[0], inputs["m"].shape[1], inputs["w"].shape[1]
+    want = {key: 0 for key in launches}
+    want.update(hif4_quantize=1, bfp_matmul_quantized=1, bfp_decode_matmul=1)
+    print(f"  launches {launches}; per shape {shapes}")
+    check(launches == want, f"quickstart §4 launched {launches}, want {want}")
+    check(shapes.get(("bfp_decode_matmul", (m, k, n))) == 1,
+          f"the decode form did not run at M={m}: {shapes}")
+    with plain_versions():
+        y_plain = ops.matmul(inputs["m"].to(dev), inputs["w"].to(dev))
+    _, v_cpu = mod.tour(inputs, torch.device("cpu"))
+    torch.cuda.synchronize()
+    y = v["y"]
+    check(torch.equal(y.view(torch.int32), y_plain.view(torch.int32))
+          and torch.equal(y.cpu().view(torch.int32), v_cpu["y"].view(torch.int32)),
+          f"quickstart §4 on the card is not bitwise its plain version: "
+          f"{int((y != y_plain).sum())} outputs differ on the card, "
+          f"{int((y.cpu() != v_cpu['y']).sum())} against the CPU")
+    print(f"  §4 (M={m} K={k} N={n}, f32 operands): bitwise the plain versions "
+          f"on the card and on the CPU; relative error {v['rel']:.3%} (CPU "
+          f"{v_cpu['rel']:.3%})")
+
+    # kernel 5's decode form alone at this shape, and ops.matmul (kernel 1,
+    # then the decode form) beside its plain version, on rotating copies
+    gen = torch.Generator(device=dev).manual_seed(23)
+    mats = [(torch.randn(m, k, generator=gen, device=dev) * 0.1,
+             torch.randn(k, n, generator=gen, device=dev) * 0.05)
+            for _ in range(L2_ROTATION)]
+    quant = [(*hif4_quantize(a), w) for a, w in mats]
+    t = timed(bfp_decode_matmul, quant)
+    plain_ms = cuda_ms(bfp_decode_matmul_plain, quant, iters=20)
+    library_ms = cuda_ms(torch.matmul, [(a.to(torch.bfloat16), w.to(torch.bfloat16))
+                                        for a, w in mats])
+    bound_ms, bound_by, nbytes = _head_decode_bound_ms(m, k, n, w_bytes=4)
+    print(f"  bfp_decode_matmul M={m} K={k} N={n} f32 weight (the quickstart's "
+          f"§4; the decode body at 32 rows): {_times(t)} plain_ms="
+          f"{plain_ms:.5f} bound_ms={bound_ms:.7f} ({bound_by}: {nbytes} B) "
+          f"library_ms={library_ms:.5f} (torch.matmul bf16, not the same "
+          f"function); {card_line()}")
+    whole = cuda_ms(ops.matmul, mats)
+    with plain_versions():
+        whole_plain = cuda_ms(ops.matmul, mats, iters=20)
+    print(f"  ops.matmul (kernel 1, then the decode form): kernel_ms="
+          f"{whole:.6f}, its plain versions on the card {whole_plain:.5f}")
+
+
+def examples_ptq(dev):
+    """The PTQ example on the card and on the CPU, the same inputs."""
+    import torch
+
+    mod = _example("torch_ptq_higptq")
+    inputs = mod.draw_inputs()
+    t0 = time.perf_counter()
+    lines, v = mod.ptq_rows(inputs, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    print("\n".join(f"  | {x}" for x in lines))
+    _, c = mod.ptq_rows(inputs, torch.device("cpu"))
+    rel = abs(v["higptq"] - c["higptq"]) / c["higptq"]
+    same = float((v["wq_g"].cpu() == c["wq_g"]).float().mean())
+    print(f"  card {card_s:.2f} s; CPU: direct-cast {c['direct']:.6f}, HiGPTQ "
+          f"{c['higptq']:.6f}; card: {v['direct']:.6f}, {v['higptq']:.6f}; "
+          f"HiGPTQ error card vs CPU {rel:.3e} relative (limit {PTQ_CARD_REL}), "
+          f"{100 * same:.3f}% of the weights equal")
+    check(v["higptq"] < v["direct"], "HiGPTQ is not below the direct cast")
+    check(abs(v["direct"] - c["direct"]) <= 1e-5 * c["direct"],
+          "the direct cast's error differs card vs CPU")
+    check(rel <= PTQ_CARD_REL, f"HiGPTQ card vs CPU {rel} > {PTQ_CARD_REL}")
+
+
+@contextlib.contextmanager
+def _serve_recorder(mod):
+    """Wrap the serve example's ``serve`` and ``serve_table``: the launches
+    of each serve, in order (``calls``), and the table's arguments and rows
+    (``args``, ``rows``)."""
+    import torch
+    from repro_torch.kernels import build
+
+    rec = {"calls": []}
+    serve, serve_table = mod.serve, mod.serve_table
+
+    def counted(*a, **kw):
+        build.reset_launches()
+        out = serve(*a, **kw)
+        torch.cuda.synchronize()
+        rec["calls"].append(dict(build.LAUNCHES))
+        return out
+
+    def table(*a, **kw):
+        lines, rows = serve_table(*a, **kw)
+        rec.update(args=a, rows=rows)
+        return lines, rows
+
+    mod.serve, mod.serve_table = counted, table
+    try:
+        yield rec
+    finally:
+        mod.serve, mod.serve_table = serve, serve_table
+
+
+PACKED_ROWS = ("hif4 (impl=packed)", "hif4 + hif4 kv cache",
+               "policy: sens-fallback")
+
+
+def _check_example_rows(label, cfg, rows, calls, new_tokens):
+    """Every row served; bf16 at 100.0%; the qdq rows launched nothing, the
+    packed rows kernel 1 and kernel 2 in both forms at 0.5625 B/value, the
+    HiF4-KV row also kernel 3 and the KV append once a layer a decode step
+    where the cache takes it (the bf16-KV rows neither)."""
+    modes = [r["mode"] for r in rows]
+    check(modes == ["bf16", "hif4", "nvfp4", "nvfp4_pts", "mxfp4", *PACKED_ROWS]
+          and len(calls) == len(rows), f"{label}: rows {modes}, {len(calls)} serves")
+    check(rows[0]["agree"] == 100.0, f"{label}: bf16 {rows[0]['agree']}")
+    steps = (new_tokens - 1) * cfg.n_layers
+    for r, n in zip(rows, calls):
+        ran = {k: c for k, c in n.items() if c}
+        print(f"  {label} {r['mode']}: {r['agree']:.1f}%, launches {ran}")
+        if r["mode"] not in PACKED_ROWS:
+            check(not ran, f"{label} {r['mode']}: launched {ran}")
+            continue
+        check(n["hif4_quantize"] > 0 and n["fused_decode_matmul"] > 0
+              and n["fused_packed_matmul"] > n["fused_decode_matmul"],
+              f"{label} {r['mode']}: not kernel 1 and kernel 2 in both forms: {n}")
+        check(r["bytes_per_value"] == 0.5625,
+              f"{label} {r['mode']}: {r['bytes_per_value']} B/value")
+        append = steps if r["serve_cfg"].kv_format == "hif4" else 0
+        attend = append if _kernel3_eligible(cfg) else 0
+        check(n["fused_decode_attention"] == attend and n["kv_append"] == append,
+              f"{label} {r['mode']}: kernel 3 {n['fused_decode_attention']}, "
+              f"KV appends {n['kv_append']}, want {attend} and {append}")
+
+
+def _kernel3_eligible(cfg) -> bool:
+    """Whether a HiF4 KV cache of ``cfg`` takes kernel 3 (the engine's
+    ``kernel_compatible``): whole 64-groups, no bf16 tail, and head blocks
+    dividing the KV heads (phi3.5-moe reduced has one KV head of 32: all
+    tail, the plain recurrence)."""
+    from repro_torch.kernels.fused_attention import heads_per_block
+
+    a = cfg.attn
+    return (a.n_kv_heads * a.d_head % 64 == 0
+            and a.n_kv_heads % heads_per_block(a.d_head) == 0)
+
+
+def examples_serve(dev):
+    """The serve example's ``main`` at its defaults on the card (trained on
+    the card, every row with its launches, the HiF4-KV cache's bytes a
+    token), the packed rows' tokens against ``serve_table`` on the CPU on
+    the same card-trained params; then ``main`` for qwen1.5-4b and
+    phi3.5-moe-42b-a6.6b."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve_loop import (
+        build_decode_cache, kv_cache_bytes, serving_ctx)
+
+    mod = _example("torch_serve_quantized")
+    t0 = time.perf_counter()
+    with _serve_recorder(mod) as rec:
+        mod.main([])
+    card_s = time.perf_counter() - t0
+    cfg, params, prompts, new, _ = rec["args"]
+    rows = rec["rows"]
+    _check_example_rows(cfg.name, cfg, rows, rec["calls"], new)
+    check(new == 16 and cfg.name == "qwen1.5-0.5b-smoke"
+          and _kernel3_eligible(cfg), f"the defaults: {cfg.name}, {new} tokens")
+
+    kv = next(r for r in rows if r["mode"] == "hif4 + hif4 kv cache")
+    _, cache = build_decode_cache(
+        cfg, kv["params"], {k: v.to(dev) for k, v in prompts.items()},
+        serving_ctx(kv["ctx"]), kv["serve_cfg"])
+    nbytes, slots = kv_cache_bytes(cache)
+    print(f"  the HiF4 KV cache on the card: {nbytes} B over {slots} slots = "
+          f"{nbytes / slots} B a token (the row prints {kv['kv_bytes']})")
+    check(nbytes == kv["kv_bytes"] * slots, "the HiF4 KV cache's bytes a token")
+    del cache
+
+    # the CPU's table on the same (card-trained) params
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    _, rows_cpu = mod.serve_table(
+        cfg, _map_tensors(params, lambda x: x.detach().cpu()), prompts, new, cpu)
+    cpu_s = time.perf_counter() - t0
+    for r, rc in zip(rows, rows_cpu):
+        if r["mode"] not in PACKED_ROWS:
+            continue
+        ctx = rc["ctx"]
+        if ctx.plan is None:
+            ctx = dataclasses.replace(ctx, plan=lm.quant_plan(cfg, ctx.quant))
+        _check_tokens(f"{r['mode']}: card vs cpu", r["tokens"].cpu(), "cpu",
+                      {"cpu": (None, rc["tokens"], cpu)}, cfg, rc["params"],
+                      ctx, prompts["tokens"], kv_format=rc["serve_cfg"].kv_format)
+    print(f"  main() at its defaults {card_s:.1f} s on the card; the CPU's "
+          f"table {cpu_s:.1f} s")
+
+    for arch, steps, new in EXAMPLES["serve_archs"]:
+        t0 = time.perf_counter()
+        with _serve_recorder(mod) as rec:
+            mod.main(["--arch", arch, "--steps", str(steps),
+                      "--new-tokens", str(new)])
+        cfg = rec["args"][0]
+        _check_example_rows(arch, cfg, rec["rows"], rec["calls"], new)
+        print(f"  {arch}: main() in {time.perf_counter() - t0:.1f} s")
+
+
+def examples_train(dev):
+    """The train example's two runs on the card into a fresh checkpoint
+    directory: falling losses, the step-50 checkpoint, no kernel launch."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+
+    mod = _example("torch_train_quantized_lm")
+    steps = EXAMPLES["train_steps"]
+    shutil.rmtree(EXAMPLES_OUT, ignore_errors=True)
+    ckpt = str(EXAMPLES_OUT / "ckpt")
+    cfg = get_arch("qwen3-4b").reduced()
+    build.reset_launches()
+    for fmt in ("none", "hif4"):
+        hist = mod.train_run(cfg, fmt, steps, ckpt, dev)
+        print(f"  | {mod.run_line(fmt, hist, steps)}")
+        losses = hist["loss"]
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+              f"{fmt}: {len(losses)} losses")
+        check(sum(losses[-5:]) < sum(losses[:5]), f"{fmt}: the loss did not fall")
+        d = Path(f"{ckpt}_{fmt}")
+        check((d / f"step_{mod.CHECKPOINT_EVERY:08d}").is_dir()
+              and latest_step(str(d)) == steps,
+              f"{fmt}: checkpoints {sorted(p.name for p in d.iterdir())}")
+    torch.cuda.synchronize()
+    check(not any(build.LAUNCHES.values()), f"training launched {build.LAUNCHES}")
+    print(f"  checkpoints at steps {mod.CHECKPOINT_EVERY} and {steps} in "
+          f"{EXAMPLES_OUT.relative_to(ROOT)}; no kernel launch; {card_line()}")
+
+
+def phase_examples(dev):
+    """The four examples on the card (examples/torch_*.py)."""
+    t0 = time.perf_counter()
+    for label, fn in (("quickstart", lambda: examples_quickstart(dev)),
+                      ("ptq_higptq", lambda: examples_ptq(dev)),
+                      ("serve_quantized", lambda: examples_serve(dev)),
+                      ("train_quantized_lm", lambda: examples_train(dev))):
+        t1 = time.perf_counter()
+        print(f"  -- {label}")
+        fn()
+        print(f"  -- {label} in {time.perf_counter() - t1:.1f} s")
+    print(f"  the four examples in {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of repro_torch")
     ap.add_argument("--seed", type=int, default=0,
@@ -5408,7 +5734,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (kernels,serve,pallas,"
                          "e2e,paged,robust,families,ssm,encdec,calibrate,"
-                         "train,dryrun,scenario); default all")
+                         "train,dryrun,scenario,examples); default all")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
     # before cuBLAS first initializes: phase train runs the train loop under
@@ -5453,7 +5779,8 @@ def main(argv=None) -> int:
               ("calibrate", lambda: phase_calibrate(dev, args.seed)),
               ("train", lambda: phase_train(dev, args.seed)),
               ("dryrun", lambda: phase_dryrun(dev, args.seed, records)),
-              ("scenario", lambda: phase_scenario(dev, args.seed, records))]
+              ("scenario", lambda: phase_scenario(dev, args.seed, records)),
+              ("examples", lambda: phase_examples(dev))]
     try:
         print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")

@@ -58,8 +58,8 @@ from repro_torch.models.common import ModelCtx
 from repro_torch.models.params import spec_leaves
 from repro_torch.runtime import serve_loop as TS
 from test_torch_mamba2 import (_leaves, _outside, artifact_round_trip,
-                               launcher_report, plans_equal, report_lines,
-                               run_in_reference_process)
+                               launcher_report, plans_equal, reference_fixtures,
+                               report_lines)
 
 torch.set_num_threads(1)
 
@@ -341,9 +341,8 @@ def serve_both_stub(arch: str, serves=SERVES, length: int = FRAMES,
     return out
 
 
-@pytest.fixture(scope="module")
-def both():
-    return run_in_reference_process("test_torch_audio", f"serve_both_stub({ARCH!r})")
+_reference_process, both = reference_fixtures(
+    "test_torch_audio", f"serve_both_stub({ARCH!r})")
 
 
 @pytest.mark.parametrize("serve", [f"{i}/{f}" for i, f in SERVES])

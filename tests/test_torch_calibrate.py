@@ -2,7 +2,8 @@
 held against a live run of the reference (``repro.calibrate``).
 
 * One shared reference run: ``repro.calibrate.calibrate("qwen1.5-0.5b",
-  reduced=True, target_bpv="sensitive-fallback", seed=0)``. The port runs on
+  reduced=True, target_bpv="sensitive-fallback", seed=0)``, in a process of
+  its own started with the module (the tests that read it come last). The port runs on
   the same weights (the reference's init through ``repro_torch.interop``)
   and the same calibration batches (the reference's ``prefill_batch``
   through numpy). The site rows (path, shape, values, packable, in budget,
@@ -26,6 +27,11 @@ held against a live run of the reference (``repro.calibrate``).
   target.
 """
 import json
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -67,6 +73,7 @@ from repro_torch.models.common import ModelCtx
 
 torch.set_num_threads(1)
 
+REPO = Path(__file__).resolve().parent.parent
 ARCH = "qwen1.5-0.5b"
 ERRORS_RTOL = 2e-2
 FORMATS = ("hif4", "hif4_direct", "nvfp4", "nvfp4_pts", "mxfp4", "bf16")
@@ -87,142 +94,6 @@ def _reference_inputs(arch, n_batches, batch, seq_len, seed=0):
     port_params = interop.params_from_jax(params, device="cpu")
     port_batches = [{k: np.asarray(v) for k, v in b.items()} for b in batches]
     return cfg, params, batches, port_params, port_batches
-
-
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The reference's calibrate and the port's on the same inputs."""
-    d = tmp_path_factory.mktemp("calibrate")
-    ref = ref_calibrate(ARCH, reduced=True, target_bpv="sensitive-fallback",
-                        seed=0, out=str(d / "ref.json"),
-                        report_out=str(d / "ref_report.json"), log=_quiet)
-    _, _, _, params, batches = _reference_inputs(ARCH, 2, 2, 64)
-    port = calibrate(ARCH, reduced=True, target_bpv="sensitive-fallback",
-                     seed=0, params=params, batches=batches, device="cpu",
-                     out=str(d / "port.json"),
-                     report_out=str(d / "port_report.json"), log=_quiet)
-    return {"ref": ref, "port": port, "dir": d}
-
-
-def _rows(summary):
-    return {r["path"]: r for r in summary["report"]["sites"]}
-
-
-def test_site_rows_and_bytes_equal_the_reference(runs):
-    ref, port = _rows(runs["ref"]), _rows(runs["port"])
-    assert list(ref) == list(port)
-    for path in ref:
-        for key in ROW_KEYS + ("bytes",):
-            assert port[path][key] == ref[path][key], (path, key)
-    captured = {p for p, r in port.items() if r["captured"]}
-    assert captured == {f"blocks.{s}" for s in (
-        "attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wg", "mlp.wu",
-        "mlp.wo")} | {"lm_head"}
-    assert runs["port"]["report"]["calibration"] == runs["ref"]["report"]["calibration"]
-
-
-@pytest.mark.parametrize("fmt", FORMATS)
-def test_errors_agree_with_the_reference(runs, fmt):
-    ref, port = _rows(runs["ref"]), _rows(runs["port"])
-    for path, r in ref.items():
-        if r["errors"] is None:
-            assert port[path]["errors"] is None
-            continue
-        np.testing.assert_allclose(port[path]["errors"][fmt], r["errors"][fmt],
-                                   rtol=ERRORS_RTOL, err_msg=path)
-
-
-def test_assignment_and_baselines_equal_the_reference(runs):
-    ref, port = runs["ref"], runs["port"]
-    for key in ("assignment", "total_bytes", "achieved_bpv", "feasible",
-                "n_sites", "n_packed", "target_bpv", "target_spec"):
-        assert port[key] == ref[key], key
-    assert set(port["baselines"]) == set(ref["baselines"])
-    for name, b in ref["baselines"].items():
-        assert port["baselines"][name]["assignment"] == b["assignment"]
-        assert port["baselines"][name]["total_bytes"] == b["total_bytes"]
-        np.testing.assert_allclose(port["baselines"][name]["total_error"],
-                                   b["total_error"], rtol=ERRORS_RTOL)
-    # a mixed plan at the fallback's 0.99375 B/value
-    assert 0 < port["n_packed"] < port["n_sites"]
-
-
-def _keys(node):
-    if isinstance(node, dict):
-        return {k: _keys(v) for k, v in node.items()}
-    if isinstance(node, list) and node and isinstance(node[0], dict):
-        return [_keys(node[0]), len(node)]
-    return None
-
-
-def test_report_has_the_reference_keys(runs):
-    ref = json.load(open(runs["dir"] / "ref_report.json"))
-    port = json.load(open(runs["dir"] / "port_report.json"))
-    assert _keys(port) == _keys(ref)
-    assert port["version"] == ref["version"] == 1
-    assert len(port["pareto_curve"]) == len(ref["pareto_curve"])
-
-
-def test_higptq_no_worse_than_direct_cast(runs):
-    """The reference's bound (tests/test_calibrate.py): on the calibration
-    set it optimizes, HiGPTQ is within 1.25x of the direct cast."""
-    for path, r in _rows(runs["port"]).items():
-        if r["packable"] and r["captured"]:
-            assert 0 < r["errors"]["hif4"] <= 1.25 * r["errors"]["hif4_direct"], path
-            assert r["errors"]["bf16"] == 0.0
-
-
-def test_search_at_the_fallback_budget_dominates_the_preset(runs):
-    """Searched AT the fallback preset's residency: <= its bytes and <= its
-    error on the same table; the curve's bytes fall strictly."""
-    rep = runs["port"]["report"]
-    fb = rep["baselines"]["sensitive-fallback"]
-    assert rep["search"]["feasible"]
-    assert rep["search"]["total_bytes"] <= fb["total_bytes"]
-    assert rep["search"]["total_error"] <= fb["total_error"] + 1e-6
-    curve = rep["pareto_curve"]
-    assert len(curve) >= 2
-    assert all(b["total_bytes"] < a["total_bytes"] for a, b in zip(curve, curve[1:]))
-
-
-def _tables(report, option, score):
-    """The searchable table of a report, in one package's vocabulary."""
-    sites = []
-    for r in report["sites"]:
-        if not r["in_budget"]:
-            continue
-        opts = [option("bf16", 2.0, 0.0)]
-        if r["packable"]:
-            opts.append(option("hif4", 0.5625, r["errors"]["hif4"]))
-        sites.append(score(r["path"], r["n_values"], tuple(opts)))
-    return sites
-
-
-def test_search_at_0p7_matches_the_reference(runs):
-    port = frontier_search(_tables(runs["port"]["report"], FormatOption,
-                                   SiteScore), 0.7)
-    ref = ref_search.frontier_search(_tables(
-        runs["ref"]["report"], ref_search.FormatOption, ref_search.SiteScore), 0.7)
-    assert port.assignment == ref.assignment
-    assert port.feasible == ref.feasible
-    assert port.total_bytes == ref.total_bytes
-    np.testing.assert_allclose(port.total_error, ref.total_error, rtol=ERRORS_RTOL)
-    assert [c["moved"] for c in port.curve] == [c["moved"] for c in ref.curve]
-
-
-@pytest.mark.parametrize("direction", ["port_file_in_reference",
-                                       "reference_file_in_port"])
-def test_policy_files_load_across_packages(runs, direction):
-    d = runs["dir"]
-    path = str(d / ("port.json" if direction.startswith("port") else "ref.json"))
-    ref_plan = ref_lm.quant_plan(ref_get_arch(ARCH).reduced(),
-                                 ref_get_policy(path, impl="packed"))
-    port_plan = lm.quant_plan(get_arch(ARCH).reduced(),
-                              get_policy(path, impl="packed"))
-    assert set(port_plan.packed_paths) == set(ref_plan.packed_paths)
-    want = {p for p, f in runs["ref"]["assignment"].items() if f == "hif4"}
-    assert set(port_plan.packed_paths) == want
-    assert open(d / "port.json").read().count("\n") > 1
 
 
 def test_emit_policy_roundtrip_resolves_to_assignment(tmp_path):
@@ -549,3 +420,179 @@ def test_front_door_lists_its_commands(capsys):
     # dryrun without --arch or --all, and a command neither package has
     assert front_door.main(["dryrun"]) == 2
     assert front_door.main(["dry-run"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# against the reference's calibrate (run in its own process: these come last)
+# ---------------------------------------------------------------------------
+
+_REF: dict = {}
+
+# run in the reference's process: its calibrate, the summary pickled
+REFERENCE = """
+import pickle, sys
+from repro.calibrate import calibrate
+d = sys.argv[1]
+summary = calibrate("qwen1.5-0.5b", reduced=True,
+                    target_bpv="sensitive-fallback", seed=0,
+                    out=d + "/ref.json", report_out=d + "/ref_report.json",
+                    log=lambda *_: None)
+with open(d + "/ref.pkl", "wb") as f:
+    pickle.dump(summary, f)
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_process(tmp_path_factory):
+    """Start the reference's calibrate in a process of its own as the module
+    begins, so it overlaps the tests that do not read it (they come first);
+    :func:`runs` collects it."""
+    d = tmp_path_factory.mktemp("calibrate")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        str(REPO / "src"), os.environ.get("PYTHONPATH")))))
+    _REF["dir"] = d
+    _REF["proc"] = subprocess.Popen(
+        [sys.executable, "-c", REFERENCE, str(d)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield
+    if _REF["proc"].poll() is None:
+        _REF["proc"].kill()
+        _REF["proc"].communicate()
+    _REF.clear()
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """The reference's calibrate and the port's on the same inputs."""
+    _, err = _REF["proc"].communicate(timeout=900)
+    assert _REF["proc"].returncode == 0, err[-4000:]
+    d = _REF["dir"]
+    with open(d / "ref.pkl", "rb") as f:
+        ref = pickle.load(f)
+    _, _, _, params, batches = _reference_inputs(ARCH, 2, 2, 64)
+    port = calibrate(ARCH, reduced=True, target_bpv="sensitive-fallback",
+                     seed=0, params=params, batches=batches, device="cpu",
+                     out=str(d / "port.json"),
+                     report_out=str(d / "port_report.json"), log=_quiet)
+    return {"ref": ref, "port": port, "dir": d}
+
+
+def _rows(summary):
+    return {r["path"]: r for r in summary["report"]["sites"]}
+
+
+def test_site_rows_and_bytes_equal_the_reference(runs):
+    ref, port = _rows(runs["ref"]), _rows(runs["port"])
+    assert list(ref) == list(port)
+    for path in ref:
+        for key in ROW_KEYS + ("bytes",):
+            assert port[path][key] == ref[path][key], (path, key)
+    captured = {p for p, r in port.items() if r["captured"]}
+    assert captured == {f"blocks.{s}" for s in (
+        "attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wg", "mlp.wu",
+        "mlp.wo")} | {"lm_head"}
+    assert runs["port"]["report"]["calibration"] == runs["ref"]["report"]["calibration"]
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_errors_agree_with_the_reference(runs, fmt):
+    ref, port = _rows(runs["ref"]), _rows(runs["port"])
+    for path, r in ref.items():
+        if r["errors"] is None:
+            assert port[path]["errors"] is None
+            continue
+        np.testing.assert_allclose(port[path]["errors"][fmt], r["errors"][fmt],
+                                   rtol=ERRORS_RTOL, err_msg=path)
+
+
+def test_assignment_and_baselines_equal_the_reference(runs):
+    ref, port = runs["ref"], runs["port"]
+    for key in ("assignment", "total_bytes", "achieved_bpv", "feasible",
+                "n_sites", "n_packed", "target_bpv", "target_spec"):
+        assert port[key] == ref[key], key
+    assert set(port["baselines"]) == set(ref["baselines"])
+    for name, b in ref["baselines"].items():
+        assert port["baselines"][name]["assignment"] == b["assignment"]
+        assert port["baselines"][name]["total_bytes"] == b["total_bytes"]
+        np.testing.assert_allclose(port["baselines"][name]["total_error"],
+                                   b["total_error"], rtol=ERRORS_RTOL)
+    # a mixed plan at the fallback's 0.99375 B/value
+    assert 0 < port["n_packed"] < port["n_sites"]
+
+
+def _keys(node):
+    if isinstance(node, dict):
+        return {k: _keys(v) for k, v in node.items()}
+    if isinstance(node, list) and node and isinstance(node[0], dict):
+        return [_keys(node[0]), len(node)]
+    return None
+
+
+def test_report_has_the_reference_keys(runs):
+    ref = json.load(open(runs["dir"] / "ref_report.json"))
+    port = json.load(open(runs["dir"] / "port_report.json"))
+    assert _keys(port) == _keys(ref)
+    assert port["version"] == ref["version"] == 1
+    assert len(port["pareto_curve"]) == len(ref["pareto_curve"])
+
+
+def test_higptq_no_worse_than_direct_cast(runs):
+    """The reference's bound (tests/test_calibrate.py): on the calibration
+    set it optimizes, HiGPTQ is within 1.25x of the direct cast."""
+    for path, r in _rows(runs["port"]).items():
+        if r["packable"] and r["captured"]:
+            assert 0 < r["errors"]["hif4"] <= 1.25 * r["errors"]["hif4_direct"], path
+            assert r["errors"]["bf16"] == 0.0
+
+
+def test_search_at_the_fallback_budget_dominates_the_preset(runs):
+    """Searched AT the fallback preset's residency: <= its bytes and <= its
+    error on the same table; the curve's bytes fall strictly."""
+    rep = runs["port"]["report"]
+    fb = rep["baselines"]["sensitive-fallback"]
+    assert rep["search"]["feasible"]
+    assert rep["search"]["total_bytes"] <= fb["total_bytes"]
+    assert rep["search"]["total_error"] <= fb["total_error"] + 1e-6
+    curve = rep["pareto_curve"]
+    assert len(curve) >= 2
+    assert all(b["total_bytes"] < a["total_bytes"] for a, b in zip(curve, curve[1:]))
+
+
+def _tables(report, option, score):
+    """The searchable table of a report, in one package's vocabulary."""
+    sites = []
+    for r in report["sites"]:
+        if not r["in_budget"]:
+            continue
+        opts = [option("bf16", 2.0, 0.0)]
+        if r["packable"]:
+            opts.append(option("hif4", 0.5625, r["errors"]["hif4"]))
+        sites.append(score(r["path"], r["n_values"], tuple(opts)))
+    return sites
+
+
+def test_search_at_0p7_matches_the_reference(runs):
+    port = frontier_search(_tables(runs["port"]["report"], FormatOption,
+                                   SiteScore), 0.7)
+    ref = ref_search.frontier_search(_tables(
+        runs["ref"]["report"], ref_search.FormatOption, ref_search.SiteScore), 0.7)
+    assert port.assignment == ref.assignment
+    assert port.feasible == ref.feasible
+    assert port.total_bytes == ref.total_bytes
+    np.testing.assert_allclose(port.total_error, ref.total_error, rtol=ERRORS_RTOL)
+    assert [c["moved"] for c in port.curve] == [c["moved"] for c in ref.curve]
+
+
+@pytest.mark.parametrize("direction", ["port_file_in_reference",
+                                       "reference_file_in_port"])
+def test_policy_files_load_across_packages(runs, direction):
+    d = runs["dir"]
+    path = str(d / ("port.json" if direction.startswith("port") else "ref.json"))
+    ref_plan = ref_lm.quant_plan(ref_get_arch(ARCH).reduced(),
+                                 ref_get_policy(path, impl="packed"))
+    port_plan = lm.quant_plan(get_arch(ARCH).reduced(),
+                              get_policy(path, impl="packed"))
+    assert set(port_plan.packed_paths) == set(ref_plan.packed_paths)
+    want = {p for p, f in runs["ref"]["assignment"].items() if f == "hif4"}
+    assert set(port_plan.packed_paths) == want
+    assert open(d / "port.json").read().count("\n") > 1

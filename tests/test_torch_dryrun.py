@@ -327,18 +327,33 @@ def reference_side() -> dict:
     return out
 
 
-@pytest.fixture(scope="module")
-def ref():
+_REF: dict = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_process():
+    """Start the reference's side as the module begins, so it overlaps the
+    port-only tests before :func:`ref` collects it."""
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=512",
                PYTHONPATH=os.pathsep.join((os.path.join(REPO, "src"),
                                            os.path.join(REPO, "tests"))))
-    run = subprocess.run(
+    _REF["proc"] = subprocess.Popen(
         [sys.executable, "-c", "import json, test_torch_dryrun as t; "
          "print(json.dumps(t.reference_side()))"],
-        env=env, capture_output=True, text=True, timeout=600)
-    assert run.returncode == 0, run.stderr[-4000:]
-    return json.loads(run.stdout.strip().splitlines()[-1])
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield
+    proc = _REF.pop("proc")
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def ref():
+    out, err = _REF["proc"].communicate(timeout=600)
+    assert _REF["proc"].returncode == 0, err[-4000:]
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def test_shapes_equal_the_reference():

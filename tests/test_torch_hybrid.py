@@ -48,7 +48,7 @@ from repro_torch.models.params import spec_leaves
 from repro_torch.runtime import serve_loop as TS
 from test_torch_mamba2 import (BATCH, NEW, _outside, launcher_report,
                                plans_equal, report_lines,
-                               run_in_reference_process, slow_decay_weights)
+                               reference_fixtures, slow_decay_weights)
 
 torch.set_num_threads(1)
 
@@ -95,10 +95,8 @@ def test_doubly_stacked_specs_equal_reference(reduced):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def both():
-    return run_in_reference_process("test_torch_mamba2",
-                                    f"serve_both({ARCH!r}, ('packed',))")
+_reference_process, both = reference_fixtures(
+    "test_torch_mamba2", f"serve_both({ARCH!r}, ('packed',))")
 
 
 def test_greedy_tokens_equal_the_reference(both):

@@ -16,17 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_mamba2 import BATCH, NEW, run_in_reference_process
+from test_torch_mamba2 import BATCH, NEW, reference_fixtures
 
 torch.set_num_threads(1)
 
 ARCH = "zamba2-2.7b"
 
 
-@pytest.fixture(scope="module")
-def both():
-    return run_in_reference_process(
-        "test_torch_mamba2", f"serve_both({ARCH!r}, ('pallas',), artifact=False)")
+_reference_process, both = reference_fixtures(
+    "test_torch_mamba2", f"serve_both({ARCH!r}, ('pallas',), artifact=False)")
 
 
 def test_greedy_tokens_equal_the_reference(both):

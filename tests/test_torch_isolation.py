@@ -1,6 +1,7 @@
 """Ground rules of the PyTorch port.
 
-* No file of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX or
+* No file of ``src/repro_torch``, no example of the port
+  (``examples/torch_*.py``) and not ``chip_smoke.py`` imports JAX or
   anything of the JAX package (an AST scan of every import).
 * Entry points run on ``cuda`` unless the caller asks for the CPU: without a
   CUDA device they raise instead of running on the CPU.
@@ -10,6 +11,7 @@
 """
 import ast
 import importlib
+import importlib.util
 import os
 import subprocess
 import sys
@@ -46,9 +48,22 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
+EXAMPLES = ("torch_quickstart", "torch_ptq_higptq", "torch_serve_quantized",
+            "torch_train_quantized_lm")
+
+
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return (files + sorted((REPO / "examples").glob("torch_*.py"))
+            + [REPO / "chip_smoke.py"])
+
+
+def _example_main(name):
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
 
 
 def _imported_modules(path: Path):
@@ -87,6 +102,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for rel in (CALIBRATION_MODULES + TRAINING_MODULES + SCENARIO_MODULES
                 + KV_APPEND_MODULES):
         assert REPO / "src" / "repro_torch" / rel in files, rel
+    for name in EXAMPLES:
+        assert REPO / "examples" / f"{name}.py" in files, name
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -127,7 +144,7 @@ def no_cuda():
 @pytest.mark.parametrize("entry", ["resolve_device", "init_params", "prepare",
                                    "serve", "interop", "launcher", "calibrate",
                                    "calibrate_launcher", "train",
-                                   "train_launcher", "scenario"])
+                                   "train_launcher", "scenario", *EXAMPLES])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     cfg = get_arch("qwen1.5-0.5b").reduced()
     calls = {
@@ -151,6 +168,7 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
         "scenario": lambda: run_scenarios(
             [Scenario("cell", "qwen1.5-0.5b", "packed", "hif4")], repeats=1,
             log=lambda *_: None),
+        **{name: (lambda name=name: _example_main(name)([])) for name in EXAMPLES},
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -445,25 +445,55 @@ def artifact_round_trip(arch: str, policy: str = "paper-iv") -> dict:
             "n_integrity": len(extra["integrity"]["leaves"])}
 
 
-def run_in_reference_process(module: str, call: str) -> dict:
-    """``module.call`` in a fresh process with XLA's excess precision off;
-    its last stdout line is JSON."""
+def start_reference_process(module: str, call: str) -> subprocess.Popen:
+    """``module.call`` in a fresh process with XLA's excess precision off,
+    started and left running (:func:`reference_result` collects it)."""
     env = dict(os.environ, XLA_FLAGS=" ".join(filter(None, (
         os.environ.get("XLA_FLAGS"), "--xla_allow_excess_precision=false"))),
         JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
             (os.path.join(REPO, "src"), os.path.join(REPO, "tests"))))
-    run = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-c", f"import json, {module} as t; "
          f"print(json.dumps(t.{call}))"],
-        env=env, capture_output=True, text=True, timeout=600)
-    assert run.returncode == 0, run.stderr[-4000:]
-    return json.loads(run.stdout.strip().splitlines()[-1])
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-@pytest.fixture(scope="module")
-def both():
-    return run_in_reference_process("test_torch_mamba2",
-                                    f"serve_both({ARCH!r})")
+def reference_result(proc: subprocess.Popen) -> dict:
+    """The last stdout line, JSON, of a :func:`start_reference_process`."""
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err[-4000:]
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def stop_reference_process(proc: subprocess.Popen) -> None:
+    """Kill a reference process that is still running."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def reference_fixtures(module: str, call: str):
+    """A test module's pair of fixtures for ``module.call`` run by
+    :func:`start_reference_process`: an autouse one that starts it as the
+    module begins, so it overlaps the tests that do not read it, and
+    ``both``, which collects its result."""
+    state: dict = {}
+
+    @pytest.fixture(scope="module", autouse=True)
+    def _reference_process():
+        state["proc"] = start_reference_process(module, call)
+        yield
+        stop_reference_process(state.pop("proc"))
+
+    @pytest.fixture(scope="module")
+    def both():
+        return reference_result(state["proc"])
+
+    return _reference_process, both
+
+
+_reference_process, both = reference_fixtures("test_torch_mamba2",
+                                              f"serve_both({ARCH!r})")
 
 
 def test_artifact_round_trip_across_packages(both):

@@ -57,7 +57,10 @@ def _inputs(cfg, tokens: np.ndarray) -> dict:
 
 def reference_grads(out: str) -> dict:
     """Per arch: the reference's init, loss and gradients; arrays to
-    ``out/ref.npz``. Run by :func:`ref` in a process of its own."""
+    ``out/ref.npz``. Run by :func:`ref` in a process of its own, the archs
+    in threads of their own (XLA compiles them side by side)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import jax
     import jax.numpy as jnp
 
@@ -67,8 +70,7 @@ def reference_grads(out: str) -> dict:
     from repro.models import lm as JL
     from repro.models.common import ModelCtx as JCtx
 
-    arrays, losses = {}, {}
-    for arch in ARCHS:
+    def one(arch):
         cfg = jget_arch(arch).reduced()
         ctx = JCtx(quant=JQ(fmt="hif4"), remat=False, attn_q_chunk=SEQ,
                    attn_k_chunk=SEQ)
@@ -78,13 +80,17 @@ def reference_grads(out: str) -> dict:
         batch = {k: jnp.asarray(v) for k, v in _inputs(cfg, tokens).items()}
         loss, grads = jax.jit(jax.value_and_grad(
             lambda p: JL.train_loss(p, batch, cfg, ctx)))(params)
-        losses[arch] = float(loss)
-        arrays[f"{arch}/tokens"] = tokens.astype(np.float32)
+        arrays = {f"{arch}/tokens": tokens.astype(np.float32)}
         for prefix, tree in (("init", params), ("grad", grads)):
             for k, v in TT._flat(tree).items():
                 arrays[f"{arch}/{prefix}/{k}"] = np.asarray(v, np.float32)
+        return float(loss), arrays
+
+    with ThreadPoolExecutor(len(ARCHS)) as pool:
+        results = dict(zip(ARCHS, pool.map(one, ARCHS)))
+    arrays = {k: v for _, a in results.values() for k, v in a.items()}
     np.savez(os.path.join(out, "ref.npz"), **arrays)
-    return losses
+    return {arch: loss for arch, (loss, _) in results.items()}
 
 
 @pytest.fixture(scope="module")

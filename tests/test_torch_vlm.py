@@ -40,7 +40,7 @@ from repro_torch.runtime import serve_loop as TS
 from test_torch_audio import (REF_REFUSALS, SERVES, decode_attention_close,
                               jspec_table, packed_kernels_bitwise, spec_table)
 from test_torch_mamba2 import (launcher_report, plans_equal, report_lines,
-                               run_in_reference_process)
+                               reference_fixtures)
 
 torch.set_num_threads(1)
 
@@ -82,10 +82,8 @@ def test_plan_equals_reference(impl):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def both():
-    return run_in_reference_process("test_torch_audio",
-                                    f"serve_both_stub({ARCH!r})")
+_reference_process, both = reference_fixtures(
+    "test_torch_audio", f"serve_both_stub({ARCH!r})")
 
 
 @pytest.mark.parametrize("serve", [f"{i}/{f}" for i, f in SERVES])
