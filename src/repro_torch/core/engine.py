@@ -55,6 +55,7 @@ from repro_torch.core.qlinear import (
     quantize_activation,
     quantize_weight,
 )
+from repro_torch.core.spans import span
 from repro_torch.kernels.fused_attention import (
     fused_decode_attention,
     fused_decode_attention_plain,
@@ -121,10 +122,11 @@ def matmul(x: torch.Tensor, w, ectx: EngineCtx = DEFAULT_ENGINE, *,
     # tap, see repro_torch.core.tap)
     site_tap.consume_pending(x, contract_x)
     if isinstance(w, PackedW):
-        if _fused_packed_ok(cfg, x, contract_x, w):
-            return _fused_packed_matmul(x, w, ectx)
-        return _packed_matmul(x, w, ectx, contract_x=contract_x,
-                              accum_dtype=accum_dtype)
+        with span("linear"):
+            if _fused_packed_ok(cfg, x, contract_x, w):
+                return _fused_packed_matmul(x, w, ectx)
+            return _packed_matmul(x, w, ectx, contract_x=contract_x,
+                                  accum_dtype=accum_dtype)
     if (cfg.enabled and cfg.impl == "pallas"
             and _pallas_activation_ok(cfg, x, contract_x)
             and _pallas_weight_ok(w, contract_w)):

@@ -10,16 +10,20 @@ Builds the serving artifact (policy paper-iv, impl packed, ``--kv-format``
 KV cache, HiF4 by default) from
 random weights (``--seed``), prefills ``--batch`` x ``--prompt-len`` tokens
 (default 480; 512 for the ssm and hybrid families, whose SSD scan takes a
-prompt that is a multiple of its 256-token chunk), then times ``--steps``
-decode steps with the host clock around work that ends in a device
+prompt that is a multiple of its 256-token chunk), profiles a second,
+warm prefill of the same prompt with ``torch.profiler``, then times
+``--steps`` decode steps with the host clock around work that ends in a device
 synchronize, and profiles two more with ``torch.profiler``
 (CPU + CUDA activities). Prints the step time, the device-busy share of the
 profiled window (the union of the device's activity intervals / wall time,
 :func:`device_activity`), the device ops and host kernel launches
 (``cudaLaunchKernel`` and its kin, :func:`host_launches`) per step, the
 share of those launches and of the host time that the KV append takes
-(each append call wrapped in a ``kv_append`` profiler range), and the top
-device kernels and host operators.
+(the program's ``kv.append`` spans), each span's calls, host and device
+time and launches per step (:func:`span_table`; ``moe.experts`` for a MoE
+arch), the same table for the profiled prefill (``lm.prefill``,
+``attn.prefill``, ``kv.pack``, ``ssd.scan``, ...), and the top device
+kernels and host operators.
 With ``--kv-pages N`` the prefilled cache is cut into pages of 64 tokens
 and laid into a pool of N pages (one table row of distinct pages per slot,
 page 0 the scratch page), and the
@@ -33,7 +37,7 @@ not a device time.
 from __future__ import annotations
 
 import argparse
-import contextlib
+import heapq
 import time
 
 import torch
@@ -41,8 +45,9 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core import engine, kvcache
 from repro_torch.core.policy import get_policy
+from repro_torch.core.spans import SPANS
 from repro_torch.device import resolve_device
-from repro_torch.models import lm, transformer
+from repro_torch.models import lm
 from repro_torch.models.common import ModelCtx
 from repro_torch.runtime.serve_loop import (
     ServeConfig, build_decode_cache, prepare_params_for_serving, serving_ctx)
@@ -103,10 +108,6 @@ def device_activity(events) -> tuple[float, list]:
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
                 "cudaMemsetAsync", "cudaMemcpyAsync")
-# the KV-cache appends of a decode step (whichever the tree defines): the
-# HiF4 ones of kvcache, the bf16 one of the transformer
-APPEND_FNS = (("kvcache", "append_kv"), ("kvcache", "append_token"),
-              ("kvcache", "append_token_paged"), ("transformer", "_append_kv"))
 
 
 def host_launches(events, ranges=()) -> tuple[int, int]:
@@ -124,28 +125,52 @@ def host_launches(events, ranges=()) -> tuple[int, int]:
     return n, inside
 
 
-@contextlib.contextmanager
-def labelled_appends(label: str = "kv_append"):
-    """Wrap each KV append function (:data:`APPEND_FNS`) in a profiler range
-    named ``label`` while the block runs (the transformer reaches them
-    through their module's globals, so the wrap is seen)."""
-    modules = {"kvcache": kvcache, "transformer": transformer}
-    saved = {(modules[m], name): getattr(modules[m], name)
-             for m, name in APPEND_FNS if hasattr(modules[m], name)}
+def span_table(events) -> dict:
+    """{span name: [calls, host us, device us, launches]} of profiled
+    ``events``: each host launch call (:data:`LAUNCH_CALLS`), and each
+    device op through its launch call's correlation id, counted to the
+    innermost of the program's spans (:data:`SPANS`) whose host interval
+    holds the launch call; those outside every span under ``(none)``."""
+    spans, launches, ops, names = [], {}, [], {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False):
+                ops.append((e.id, e.time_range.end - e.time_range.start))
+        elif e.name in SPANS:
+            spans.append((e.time_range.start, e.time_range.end, e.name))
+        elif e.name in LAUNCH_CALLS:
+            launches[e.id] = e.time_range.start
+    table = {}
+    for start, end, name in spans:
+        row = table.setdefault(name, [0, [], 0.0, 0])
+        row[0] += 1
+        row[1].append((start, end))
+    # sweep the launch calls in time order, keeping the spans open at each
+    spans.sort()
+    heap, i = [], 0
+    for corr, t in sorted(launches.items(), key=lambda x: x[1]):
+        while i < len(spans) and spans[i][0] <= t:
+            heapq.heappush(heap, (-spans[i][0], spans[i][1], spans[i][2]))
+            i += 1
+        while heap and heap[0][1] < t:
+            heapq.heappop(heap)
+        names[corr] = heap[0][2] if heap else "(none)"
+    for corr, us in ops:
+        table.setdefault(names.get(corr, "(none)"), [0, [], 0.0, 0])[2] += us
+    for name in names.values():
+        table.setdefault(name, [0, [], 0.0, 0])[3] += 1
+    return {name: [c, union_us(iv), us, n]
+            for name, (c, iv, us, n) in table.items()}
 
-    def wrap(fn):
-        def labelled(*a, **kw):
-            with torch.profiler.record_function(label):
-                return fn(*a, **kw)
-        return labelled
 
-    for (module, name), fn in saved.items():
-        setattr(module, name, wrap(fn))
-    try:
-        yield
-    finally:
-        for (module, name), fn in saved.items():
-            setattr(module, name, fn)
+def print_spans(table: dict, per: int) -> None:
+    """Print :func:`span_table`'s rows, each divided by ``per``, largest
+    device time first."""
+    for name, (calls, host_us, dev_us, n) in sorted(table.items(),
+                                                    key=lambda x: -x[1][2]):
+        print(f"  {name:16s} {calls / per:6.0f} calls  host "
+              f"{host_us / per / 1e3:9.3f} ms  device {dev_us / per / 1e3:9.3f} "
+              f"ms  {n / per:6.0f} launches")
 
 
 def main(argv=None) -> int:
@@ -185,10 +210,15 @@ def main(argv=None) -> int:
     budget = args.steps + 4
     P = kvcache.DEFAULT_PAGE_TOKENS
     cap = -(-(args.prompt_len + budget) // P) * P if args.kv_pages else None
+    serve = ServeConfig(max_new_tokens=budget, cache_capacity=cap)
     logits, cache = build_decode_cache(cfg, params, {"tokens": tokens.to(dev)},
-                                       sctx, ServeConfig(max_new_tokens=budget,
-                                                         cache_capacity=cap))
+                                       sctx, serve)
     token = torch.argmax(logits, dim=-1).to(torch.int32)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        build_decode_cache(cfg, params, {"tokens": tokens.to(dev)}, sctx, serve)
+        torch.cuda.synchronize()
+    prefill_spans = span_table(prof.events())
     if args.kv_pages:
         cache = paged_cache(cfg, cache, args.batch, args.kv_pages, P, dev)
 
@@ -209,8 +239,7 @@ def main(argv=None) -> int:
           f"prompt {args.prompt_len}, {kv}: decode {step_ms:.2f} ms/step "
           f"({args.batch * 1e3 / step_ms:.1f} tokens/s)")
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof, labelled_appends():
+    with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
             token, cache = step(token, cache)
@@ -224,7 +253,7 @@ def main(argv=None) -> int:
           f"wall; idle {100 - 100 * busy_ms * 1e3 / wall_us:.1f}%), "
           f"{n_kernels / 2:.0f} device ops/step")
     appends = [(e.time_range.start, e.time_range.end) for e in prof.events()
-               if e.name == "kv_append"
+               if e.name == "kv.append"
                and e.device_type != torch.autograd.DeviceType.CUDA]
     launched, in_append = host_launches(prof.events(), appends)
     append_us = union_us(appends)
@@ -233,6 +262,10 @@ def main(argv=None) -> int:
           f"({100 * in_append / max(launched, 1):.1f}%), host "
           f"{append_us / 2e3:.2f} ms/step ({100 * append_us / wall_us:.1f}% "
           f"of wall)")
+    print("spans (per step; device time and launches to the innermost):")
+    print_spans(span_table(prof.events()), 2)
+    print("spans of the profiled prefill:")
+    print_spans(prefill_spans, 1)
     print("top device time (per step):")
     for name, count, ms in kernels[:args.top]:
         print(f"  {ms / 2:9.3f} ms  {count / 2:6.0f}x  {name[:90]}")

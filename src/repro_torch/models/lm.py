@@ -45,6 +45,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import kvcache
 from repro_torch.core.policy import STACKED_COLLECTIONS, QuantPlan, QuantPolicy
 from repro_torch.core.qlinear import PackedW, QuantConfig
+from repro_torch.core.spans import span
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
@@ -245,10 +246,12 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx
     """f32 logits from the (bf16) head, accumulated in f32. The tied head
     contracts a transposed view of the embedding, never an f32 copy of it
     on CUDA."""
-    x = tf.norm_apply(params["final_norm"], x, cfg)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    y = dense(x, w, quant=ctx.site_quant("lm_head"), accum_dtype=torch.float32)
-    return y.to(torch.float32)
+    with span("lm.head"):
+        x = tf.norm_apply(params["final_norm"], x, cfg)
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        y = dense(x, w, quant=ctx.site_quant("lm_head"),
+                  accum_dtype=torch.float32)
+        return y.to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -565,30 +568,31 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, ctx: ModelCtx):
     ``batch`` is {"tokens"} (B, S), {"embeds"} (B, S, d) for the vlm
     family (cast to the compute dtype), or {"frames"} (B, S_enc, d) for the
     audio family, whose decoder then consumes BOS (token 0) alone."""
-    _check_family(cfg)
-    if cfg.family == "audio":
-        frames = batch["frames"]
-        bos = torch.zeros((frames.shape[0], 1), dtype=torch.long,
-                          device=frames.device)
-        x = embed_tokens(params, bos, cfg, ctx)
-        x = x + sinusoid(torch.arange(1, device=x.device), cfg.d_model).to(x.dtype)
-        h, caches = _backbone(params, x, cfg, ctx, mode="prefill", frames=frames)
-    elif cfg.embeds_input:
-        x = batch["embeds"].to(ctx.compute_dtype)
-        h, caches = _backbone(params, x, cfg, ctx, mode="prefill")
-    else:
-        x = embed_tokens(params, batch["tokens"], cfg, ctx)
-        h, caches = _backbone(params, x, cfg, ctx, mode="prefill")
-    logits = lm_logits(params, h[:, -1:], cfg, ctx)[:, 0]
-    if cfg.family == "ssm":
-        return logits, {"layers": caches, "pos": x.shape[1]}
-    if cfg.family == "hybrid":
-        return logits, {"layers": caches["layers"], "kv": caches["kv"],
-                        "pos": x.shape[1]}
-    if cfg.family == "audio":
-        return logits, {"self": caches["self"], "cross": caches["cross"],
-                        "pos": x.shape[1]}
-    return logits, {"kv": caches, "pos": x.shape[1]}
+    with span("lm.prefill"):
+        _check_family(cfg)
+        if cfg.family == "audio":
+            frames = batch["frames"]
+            bos = torch.zeros((frames.shape[0], 1), dtype=torch.long,
+                              device=frames.device)
+            x = embed_tokens(params, bos, cfg, ctx)
+            x = x + sinusoid(torch.arange(1, device=x.device), cfg.d_model).to(x.dtype)
+            h, caches = _backbone(params, x, cfg, ctx, mode="prefill", frames=frames)
+        elif cfg.embeds_input:
+            x = batch["embeds"].to(ctx.compute_dtype)
+            h, caches = _backbone(params, x, cfg, ctx, mode="prefill")
+        else:
+            x = embed_tokens(params, batch["tokens"], cfg, ctx)
+            h, caches = _backbone(params, x, cfg, ctx, mode="prefill")
+        logits = lm_logits(params, h[:, -1:], cfg, ctx)[:, 0]
+        if cfg.family == "ssm":
+            return logits, {"layers": caches, "pos": x.shape[1]}
+        if cfg.family == "hybrid":
+            return logits, {"layers": caches["layers"], "kv": caches["kv"],
+                            "pos": x.shape[1]}
+        if cfg.family == "audio":
+            return logits, {"self": caches["self"], "cross": caches["cross"],
+                            "pos": x.shape[1]}
+        return logits, {"kv": caches, "pos": x.shape[1]}
 
 
 def pad_cache(cache: dict, cfg: ArchConfig, capacity: int) -> dict:
@@ -619,20 +623,21 @@ def quantize_kv_cache(cache: dict, cfg: ArchConfig) -> dict:
     read-only "cross" (packed once here, only ever read after). Layers are
     packed one at a time to bound the float32 working set. The ssm and
     hybrid families have no packed layout (their KV, if any, stays bf16)."""
-    if cfg.family not in PACKED_KV_FAMILIES:
-        raise ValueError(f"quantize_kv_cache packs the attention caches of "
-                         f"{PACKED_KV_FAMILIES}, got {cfg.family!r}")
+    with span("kv.pack"):
+        if cfg.family not in PACKED_KV_FAMILIES:
+            raise ValueError(f"quantize_kv_cache packs the attention caches of "
+                             f"{PACKED_KV_FAMILIES}, got {cfg.family!r}")
 
-    def pack(t):
-        per_layer = [kvcache.to_kernel_layout(kvcache.quantize_kv(t[i]))
-                     for i in range(t.shape[0])]
-        return {key: torch.stack([p[key] for p in per_layer])
-                for key in ("codes", "meta", "tail")}
+        def pack(t):
+            per_layer = [kvcache.to_kernel_layout(kvcache.quantize_kv(t[i]))
+                         for i in range(t.shape[0])]
+            return {key: torch.stack([p[key] for p in per_layer])
+                    for key in ("codes", "meta", "tail")}
 
-    out = dict(cache)
-    for key in (("self", "cross") if cfg.family == "audio" else ("kv",)):
-        out[key] = {"k": pack(cache[key]["k"]), "v": pack(cache[key]["v"])}
-    return out
+        out = dict(cache)
+        for key in (("self", "cross") if cfg.family == "audio" else ("kv",)):
+            out[key] = {"k": pack(cache[key]["k"]), "v": pack(cache[key]["v"])}
+        return out
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: dict,
@@ -640,31 +645,32 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict,
     """token (B,) -> (logits (B, V), cache advanced by one token, in place).
     A paged cache (``pages`` present) keeps its page table. The audio
     decoder adds the sinusoid at each slot's position."""
-    pos = cache["pos"]
-    x = embed_tokens(params, token[:, None], cfg, ctx)            # (B, 1, d)
-    if cfg.family == "audio":
-        posv = kvcache.slot_positions(pos, x.shape[0], x.device)
-        x = x + sinusoid(posv[:, None], cfg.d_model).to(x.dtype)
-        h, new = _backbone(params, x, cfg, ctx, mode="decode", caches=cache,
-                           pos=pos)
-        new_cache = {"self": new["self"], "cross": new["cross"], "pos": pos + 1}
-    elif cfg.family == "ssm":
-        h, layers = _backbone(params, x, cfg, ctx, mode="decode",
-                              caches=cache["layers"])
-        new_cache = {"layers": layers, "pos": pos + 1}
-    elif cfg.family == "hybrid":
-        h, new = _backbone(params, x, cfg, ctx, mode="decode", caches=cache,
-                           pos=pos)
-        new_cache = {"layers": new["layers"], "kv": new["kv"], "pos": pos + 1}
-    else:
-        pages = cache.get("pages")
-        h, kv = _backbone(params, x, cfg, ctx, mode="decode",
-                          caches=cache["kv"], pos=pos, pages=pages)
-        new_cache = {"kv": kv, "pos": pos + 1}
-        if pages is not None:
-            new_cache["pages"] = pages
-    logits = lm_logits(params, h[:, -1:], cfg, ctx)[:, 0]
-    return logits, new_cache
+    with span("lm.decode_step"):
+        pos = cache["pos"]
+        x = embed_tokens(params, token[:, None], cfg, ctx)            # (B, 1, d)
+        if cfg.family == "audio":
+            posv = kvcache.slot_positions(pos, x.shape[0], x.device)
+            x = x + sinusoid(posv[:, None], cfg.d_model).to(x.dtype)
+            h, new = _backbone(params, x, cfg, ctx, mode="decode", caches=cache,
+                               pos=pos)
+            new_cache = {"self": new["self"], "cross": new["cross"], "pos": pos + 1}
+        elif cfg.family == "ssm":
+            h, layers = _backbone(params, x, cfg, ctx, mode="decode",
+                                  caches=cache["layers"])
+            new_cache = {"layers": layers, "pos": pos + 1}
+        elif cfg.family == "hybrid":
+            h, new = _backbone(params, x, cfg, ctx, mode="decode", caches=cache,
+                               pos=pos)
+            new_cache = {"layers": new["layers"], "kv": new["kv"], "pos": pos + 1}
+        else:
+            pages = cache.get("pages")
+            h, kv = _backbone(params, x, cfg, ctx, mode="decode",
+                              caches=cache["kv"], pos=pos, pages=pages)
+            new_cache = {"kv": kv, "pos": pos + 1}
+            if pages is not None:
+                new_cache["pages"] = pages
+        logits = lm_logits(params, h[:, -1:], cfg, ctx)[:, 0]
+        return logits, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.spans import span
 from repro_torch.models.common import ModelCtx, dense, rms_norm
 from repro_torch.models.params import PSpec
 
@@ -228,14 +229,16 @@ def mamba_full(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx, *,
     h = rms_norm(x, p["pre_norm"], eps=cfg.norm_eps)
     z, xin, bc, dt = _in_proj(p, h, cfg, ctx)
 
-    xc = conv_full(xin, p["conv_w_x"], p["conv_b_x"])
-    bcc = conv_full(bc, p["conv_w_bc"], p["conv_b_bc"])
+    with span("ssm.conv"):
+        xc = conv_full(xin, p["conv_w_x"], p["conv_b_x"])
+        bcc = conv_full(bc, p["conv_w_bc"], p["conv_b_bc"])
     bv = bcc[..., :N].to(torch.float32)
     cv = bcc[..., N:].to(torch.float32)
 
     a = -torch.exp(p["a_log"].to(torch.float32))
-    y, final_state = ssd_scan(xc.reshape(B, S, H, P), dt, a, bv, cv,
-                              p["d_skip"], cfg.ssm.chunk)
+    with span("ssd.scan"):
+        y, final_state = ssd_scan(xc.reshape(B, S, H, P), dt, a, bv, cv,
+                                  p["d_skip"], cfg.ssm.chunk)
     out = _gate_out(p, y.reshape(B, S, di), z, x.dtype, cfg, ctx)
     if return_cache:
         return out, {"conv_x": _tail(xin, K - 1), "conv_bc": _tail(bc, K - 1),
@@ -261,11 +264,14 @@ def mamba_step(p: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig,
     h = rms_norm(x[:, 0], p["pre_norm"], eps=cfg.norm_eps)      # (B, d)
     z, xin, bc, dt = _in_proj(p, h, cfg, ctx)
 
-    xc = conv_step(xin, cache["conv_x"], p["conv_w_x"], p["conv_b_x"])
-    bcc = conv_step(bc, cache["conv_bc"], p["conv_w_bc"], p["conv_b_bc"])
+    with span("ssm.conv"):
+        xc = conv_step(xin, cache["conv_x"], p["conv_w_x"], p["conv_b_x"])
+        bcc = conv_step(bc, cache["conv_bc"], p["conv_w_bc"], p["conv_b_bc"])
     b1 = bcc[..., :N].to(torch.float32)
     c1 = bcc[..., N:].to(torch.float32)
 
     a = -torch.exp(p["a_log"].to(torch.float32))
-    y = ssd_step(xc.reshape(B, H, P), dt, a, b1, c1, p["d_skip"], cache["ssd"])
+    with span("ssd.step"):
+        y = ssd_step(xc.reshape(B, H, P), dt, a, b1, c1, p["d_skip"],
+                     cache["ssd"])
     return _gate_out(p, y.reshape(B, di), z, x.dtype, cfg, ctx)[:, None]

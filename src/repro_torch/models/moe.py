@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import engine
 from repro_torch.core import tap as site_tap
+from repro_torch.core.spans import span
 from repro_torch.models.common import ModelCtx, dense
 from repro_torch.models.params import PSpec
 
@@ -152,14 +153,15 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx
             lambda c: engine.qdq_einsum("erd,edf->erf", c, w, ectx, a_axis=-1,
                                         w_axis=1), a, ROW_CHUNK, 1)
 
-    if cfg.activation == "swiglu":
-        h = F.silu(qbmm(xe, p["wg"], "moe.wg").to(torch.float32))
-        h = (h * qbmm(xe, p["wu"], "moe.wu").to(torch.float32)).to(x.dtype)
-    else:
-        # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(qbmm(xe, p["wi"], "moe.wi").to(torch.float32),
-                   approximate="tanh").to(x.dtype)
-    ye = qbmm(h, p["wo"], "moe.wo").reshape(E * B * C, d)
+    with span("moe.experts"):
+        if cfg.activation == "swiglu":
+            h = F.silu(qbmm(xe, p["wg"], "moe.wg").to(torch.float32))
+            h = (h * qbmm(xe, p["wu"], "moe.wu").to(torch.float32)).to(x.dtype)
+        else:
+            # jax.nn.gelu's default is the tanh approximation
+            h = F.gelu(qbmm(xe, p["wi"], "moe.wi").to(torch.float32),
+                       approximate="tanh").to(x.dtype)
+        ye = qbmm(h, p["wo"], "moe.wo").reshape(E * B * C, d)
     ye = torch.cat([ye, ye.new_zeros((1, d))])                  # the sink: 0
 
     # combine: each token's choices in expert order, gate (rounded to the

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import engine as qengine
 from repro_torch.core import kvcache
+from repro_torch.core.spans import span
 from repro_torch.models.attention import (AttnChunking, decode_attention,
                                           flash_attention, flash_mha_vec)
 from repro_torch.models.common import (ModelCtx, apply_rope, dense, layer_norm,
@@ -128,10 +129,11 @@ def attn_full(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: ModelCtx, *,
         k = apply_rope(k, positions, cfg.attn.rope_theta)
     chunking = AttnChunking(q_chunk=min(ctx.attn_q_chunk, S),
                             k_chunk=min(ctx.attn_k_chunk, S))
-    if ctx.attn_impl == "vec_q":
-        o = flash_mha_vec(q, k, v, causal, 0, chunking)
-    else:
-        o = flash_attention(q, k, v, causal=causal, chunking=chunking)
+    with span("attn.prefill"):
+        if ctx.attn_impl == "vec_q":
+            o = flash_mha_vec(q, k, v, causal, 0, chunking)
+        else:
+            o = flash_attention(q, k, v, causal=causal, chunking=chunking)
     y = out_proj(p, o, cfg, ctx, site)
     return y, ({"k": k, "v": v} if return_cache else None)
 
@@ -190,18 +192,22 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
             # card), through the page table for the pool: (pages[b,
             # pos//P], pos % P), the scheduler giving live slots pages they
             # own alone; attention streams the packed cache
-            kvcache.append_kv(cache, k_new, v_new, posv, pages)
+            with span("kv.append"):
+                kvcache.append_kv(cache, k_new, v_new, posv, pages)
         else:
-            _append_kv(cache["k"], k_new, posv)
-            _append_kv(cache["v"], v_new, posv)
-    if packed:
-        o = qengine.attention_decode(
-            q[:, 0].contiguous(), cache["k"], cache["v"], length,
-            cfg.attn.n_kv_heads, cfg.attn.d_head,
-            qengine.EngineCtx(quant=ctx.quant), pages=pages,
-            block_kv=ctx.attn_kv_block)
-    else:
-        o = decode_attention(q[:, 0], cache["k"], cache["v"], length)
+            with span("kv.append"):
+                _append_kv(cache["k"], k_new, posv)
+            with span("kv.append"):
+                _append_kv(cache["v"], v_new, posv)
+    with span("attn.decode"):
+        if packed:
+            o = qengine.attention_decode(
+                q[:, 0].contiguous(), cache["k"], cache["v"], length,
+                cfg.attn.n_kv_heads, cfg.attn.d_head,
+                qengine.EngineCtx(quant=ctx.quant), pages=pages,
+                block_kv=ctx.attn_kv_block)
+        else:
+            o = decode_attention(q[:, 0], cache["k"], cache["v"], length)
     y = out_proj(p, o[:, None], cfg, ctx, site)                # (B, 1, d)
     return y, cache
 

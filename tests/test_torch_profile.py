@@ -8,13 +8,13 @@ import pytest
 import torch
 
 from repro_torch.launch.profile import (device_activity, host_launches,
-                                        labelled_appends)
+                                        span_table)
 
 CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
 
 
-def _ev(name, start, end, device=CUDA, annotation=False):
-    return SimpleNamespace(name=name, device_type=device,
+def _ev(name, start, end, device=CUDA, annotation=False, corr=0):
+    return SimpleNamespace(name=name, device_type=device, id=corr,
                            is_user_annotation=annotation,
                            time_range=SimpleNamespace(start=start, end=end))
 
@@ -53,25 +53,79 @@ def test_host_launches_counts_launch_calls_inside_the_ranges():
     assert host_launches(events, [(0, 11), (50, 60)]) == (3, 2)
 
 
-def test_labelled_appends_wraps_and_restores_every_append():
+def test_span_table_counts_each_launch_to_its_innermost_span():
+    events = [_ev("lm.decode_step", 0, 100, CPU),
+              _ev("linear", 10, 20, CPU),
+              _ev("cudaLaunchKernel", 12, 13, CPU, corr=1),
+              _ev("cudaLaunchKernel", 30, 31, CPU, corr=2),
+              _ev("cudaLaunchKernel", 150, 151, CPU, corr=3),
+              _ev("gemm", 40, 60, corr=1),              # runs after its span
+              _ev("add", 60, 65, corr=2),
+              _ev("copy", 160, 161, corr=3),
+              _ev("linear", 0, 200, annotation=True)]   # a device twin
+    assert span_table(events) == {"lm.decode_step": [1, 100, 5, 1],
+                                  "linear": [1, 10, 20, 1],
+                                  "(none)": [0, 0.0, 1, 1]}
+
+
+def _reduced_decode(kv_format):
+    """A packed serve of the reduced qwen config, prefilled: (step, cache)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import kvcache
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import lm
+    from repro_torch.models.common import ModelCtx
+    from repro_torch.runtime.serve_loop import (
+        ServeConfig, build_decode_cache, prepare_params_for_serving, serving_ctx)
+
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    plan = lm.quant_plan(cfg, get_policy("paper-iv", impl="packed",
+                                         kv=kvcache.KVCacheConfig(kv_format)))
+    sctx = serving_ctx(ModelCtx(plan=plan))
+    cpu = torch.device("cpu")
+    params = prepare_params_for_serving(lm.init_params(cfg, 0, device=cpu),
+                                        cfg, plan, device=cpu)
+    tokens = torch.randint(0, cfg.vocab, (2, 8),
+                           generator=torch.Generator().manual_seed(1))
+    logits, cache = build_decode_cache(cfg, params, {"tokens": tokens}, sctx,
+                                       ServeConfig(max_new_tokens=4))
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+    return cfg, (lambda c: lm.decode_step(params, token, c, cfg, sctx)), cache
+
+
+@pytest.mark.parametrize("kv_format", ["hif4", "bf16"])
+def test_decode_step_spans_each_kv_append_only_under_the_profiler(
+        kv_format, monkeypatch):
+    """One ``kv.append`` range per append call (the HiF4 cache's one a
+    layer; the bf16 cache's K and V) under the CPU profiler, and no range
+    entered without it."""
     from repro_torch.core import kvcache
     from repro_torch.models import transformer
 
-    before = (kvcache.append_kv, kvcache.append_token,
-              kvcache.append_token_paged, transformer._append_kv)
-    with labelled_appends():
-        wrapped = (kvcache.append_kv, kvcache.append_token,
-                   kvcache.append_token_paged, transformer._append_kv)
-        assert all(w is not b for w, b in zip(wrapped, before))
-        cache = torch.zeros(2, 4, 1, 2, dtype=torch.bfloat16)
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-            transformer._append_kv(cache, torch.ones(2, 1, 1, 2),
-                                   torch.tensor([0, 3]))
-    assert (kvcache.append_kv, kvcache.append_token,
-            kvcache.append_token_paged, transformer._append_kv) == before
-    assert [e.name for e in prof.events()].count("kv_append") == 1
-    assert cache[0, 0].float().sum() == 2 and cache[1, 3].float().sum() == 2
+    cfg, step, cache = _reduced_decode(kv_format)
+    module, name = ((kvcache, "append_kv") if kv_format == "hif4"
+                    else (transformer, "_append_kv"))
+    append, calls = getattr(module, name), []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return append(*a, **kw)
+
+    monkeypatch.setattr(module, name, counted)
+    with monkeypatch.context() as m:
+        def entered(*a, **kw):
+            raise AssertionError("a span entered record_function")
+        m.setattr(torch.profiler, "record_function", entered)
+        _, cache = step(cache)
+    per_step = len(calls)
+    assert per_step == cfg.n_layers * (1 if kv_format == "hif4" else 2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(cache)
+    assert len(calls) == 2 * per_step
+    names = [e.name for e in prof.events()]
+    assert names.count("kv.append") == per_step
+    assert names.count("lm.decode_step") == 1
 
 
 @pytest.mark.parametrize("kv_format", ["hif4", "bf16"])
@@ -79,7 +133,8 @@ def test_kv_format_flag_profiles_either_cache(kv_format, monkeypatch, capsys):
     """The launcher's flow at the reduced config on the CPU (a rehearsal:
     no device time exists here): the flag picks the cache and the KV
     appends are counted: 2 layers x one call for K and V (HiF4), or one
-    each (bf16)."""
+    each (bf16); the profiled prefill's table names its spans, ``kv.pack``
+    for the HiF4 cache alone."""
     import repro_torch.launch.profile as P
     from repro_torch.configs import get_arch
 
@@ -93,6 +148,11 @@ def test_kv_format_flag_profiles_either_cache(kv_format, monkeypatch, capsys):
     assert f"contiguous {kv_format} KV cache" in out
     calls = {"hif4": 2, "bf16": 4}[kv_format]
     assert f"KV append: {calls} calls/step" in out
+    prefill = out.split("spans of the profiled prefill:\n")[1]
+    prefill = {line.split()[0]: int(line.split()[1])
+               for line in prefill.split("top device time")[0].splitlines()}
+    assert prefill["lm.prefill"] == 1 and prefill["attn.prefill"] == 2
+    assert prefill.get("kv.pack") == (1 if kv_format == "hif4" else None)
 
 
 def test_kv_format_flag_refuses_a_bf16_pool():
